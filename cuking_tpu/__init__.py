@@ -1,21 +1,21 @@
-"""cuking_tpu — a TPU-native KING relatedness engine.
+"""cuking_tpu — a KING relatedness engine in JAX for GPUs.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
-populationgenomics/cuKING (reference: /root/reference/cuking.cu): it ingests
+A from-scratch JAX/XLA framework with the capabilities of
+populationgenomics/cuKING (reference: cuking.cu): it ingests
 sparse ``(row_idx, col_idx, n_alt_alleles)`` Parquet tables exported from a
 Hail MatrixTable, packs genotypes into per-sample 2-bit-plane bitsets, computes
 IBS0/IBS1/IBS2 and Hail's between-family KING kinship coefficient for every
 sample pair, and writes kin-thresholded results as sorted Snappy Parquet
 partitions — bit-identical to the reference and to ``hl.king``.
 
-Unlike the reference's one-CUDA-block-per-pair popcount kernel, the TPU compute
+Unlike the reference's one-CUDA-block-per-pair popcount kernel, the compute
 path reformulates all six KING counters as int8 inner products of per-site
-{het, hom-alt, defined} indicator planes, so the hot loop runs on the MXU
-(systolic array) via a Pallas kernel that streams packed site-chunks from HBM
-and unpacks bits to int8 in VMEM.  Multi-chip scaling uses a
-``jax.sharding.Mesh`` + ``shard_map`` ring exchange of sample panels over ICI
-instead of the reference's share-nothing GCS sharding (which is also kept, as
-``--split_factor`` / ``--shard_index``, for process-level fan-out parity).
+{het, hom-alt, defined} indicator planes, so the hot loop is an int8 matrix
+product with int32 sums on the tensor cores.  Multi-device scaling uses a
+``jax.sharding.Mesh`` + ``shard_map`` ring exchange of sample panels (NCCL
+over NVLink) instead of the reference's share-nothing GCS sharding (which is
+also kept, as ``--split_factor`` / ``--shard_index``, for process-level
+fan-out parity).
 """
 
 __version__ = "0.1.0"

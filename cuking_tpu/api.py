@@ -40,10 +40,9 @@ def king(
       genotypes: ``[N, S]`` int array of alt-allele counts (0, 1, 2) with
         ``-1`` marking missing calls — the dense equivalent of the sparse
         ``n_alt_alleles`` input table.
-      kernel: optional override ``(planes_i, planes_j) -> KingCounts``;
-        defaults to the XLA int8-matmul path (works on CPU and TPU).  Pass
-        ``cuking_tpu.ops.king_pallas.panel_counts_pallas`` on TPU for the
-        fused kernel.
+      kernel: optional override ``(planes_i, planes_j) -> KingCounts``
+        (e.g. ``ops.king_jnp.panel_counts_popcount``); defaults to the XLA
+        int8-matmul path.
       site_chunk_words: site-chunking granularity for the default kernel.
 
     Returns:
@@ -52,25 +51,9 @@ def king(
     g = np.asarray(genotypes)
     if g.ndim != 2:
         raise ValueError(f"genotypes must be [num_samples, num_sites], got {g.shape}")
-    n = g.shape[0]
     layout = PlaneLayout.create(g.shape[1], words_multiple=min(
         bitset.DEFAULT_WORDS_MULTIPLE, max(16, site_chunk_words)))
     packed = bitset.pack_genotypes(g, layout)
-    # Pad the sample axis to a tile-friendly multiple with all-missing rows
-    # (self-masking: zero counts, NaN kin, sliced off below) so any kernel —
-    # including the tile-divisibility-constrained Pallas path — accepts it.
-    if kernel is not None:
-        from cuking_tpu.ops.king_pallas import TILE_I, TILE_J
-
-        tile = max(TILE_I, TILE_J)
-        n_pad = -(-max(n, 1) // tile) * tile
-    else:
-        n_pad = n
-    if n_pad > n:
-        pad = np.full(
-            (2, n_pad - n, layout.words), 0xFFFFFFFF, dtype=np.uint32
-        )
-        packed = np.concatenate([packed, pad], axis=1)
     planes = jnp.asarray(packed)
     if kernel is None:
         counts = panel_counts_matmul(
@@ -78,7 +61,4 @@ def king(
         )
     else:
         counts = kernel(planes, planes)
-    res = king_from_counts(counts)
-    if n_pad > n:
-        res = KingResult(*(x[:n, :n] for x in res))
-    return res
+    return king_from_counts(counts)

@@ -2,8 +2,8 @@
 
 Same eight flags as the reference binary (cuking.cu:27-52), same validation,
 same stage structure: read metadata → build shard Submatrix → allocate planes
-→ list+ingest Parquet in parallel → all-pairs KING (here: jitted panel sweep
-on the TPU instead of one CUDA kernel launch) → overflow check → sort →
+→ list+ingest Parquet in parallel → all-pairs KING (here: a jitted panel
+sweep instead of one CUDA kernel launch) → overflow check → sort →
 write one Snappy Parquet partition per shard.
 
 Usage::
@@ -45,7 +45,7 @@ from cuking_tpu.utils.stopwatch import StageLogger
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cuking_tpu",
-        description="TPU-native KING relatedness over cuKING-format Parquet inputs.",
+        description="KING relatedness over cuKING-format Parquet inputs.",
     )
     p.add_argument("--input_uri", default="", help=(
         "Directory (local or gs://) containing the packed Parquet tables "
@@ -65,27 +65,27 @@ def build_parser() -> argparse.ArgumentParser:
         "Split the relatedness matrix into k x k submatrices for sharding"))
     p.add_argument("--shard_index", type=int, default=0, help=(
         "Shard index in [0, split_factor*(split_factor+1)/2)"))
-    # TPU-specific extensions (no reference counterpart):
+    # Extensions (no reference counterpart):
     p.add_argument("--kernel", default="auto",
-                   choices=["auto", "popcount", "matmul", "pallas"],
+                   choices=["auto", "popcount", "matmul"],
                    help="Count-kernel implementation")
     p.add_argument("--panel", type=int, default=1024,
                    help="Samples per panel (pair-tile edge) in the jitted sweep")
     p.add_argument("--use_mesh", action="store_true", help=(
         "Run this shard data-parallel over all local JAX devices via the "
         "shard_map ring exchange (composes with --split_factor for cohorts "
-        "larger than slice HBM; replaces the reference's share-nothing "
-        "multi-GPU fan-out)"))
+        "larger than the devices' memory; replaces the reference's "
+        "share-nothing multi-GPU fan-out)"))
     p.add_argument("--distributed", action="store_true", help=(
-        "Multi-host TPU pod slice: jax.distributed.initialize(), mesh over "
-        "ALL chips in the slice; each host ingests only its devices' sample "
-        "row blocks and writes its own disjoint output partition (implies "
-        "--use_mesh; composes with --split_factor — partitions are then "
-        "keyed by shard x host)"))
+        "Multi-process run: jax.distributed.initialize() (coordinator from "
+        "JAX_COORDINATOR_ADDRESS), mesh over ALL devices of all processes; "
+        "each process ingests only its devices' sample row blocks and writes "
+        "its own disjoint output partition (implies --use_mesh; composes "
+        "with --split_factor — partitions are then keyed by shard x process)"))
     p.add_argument("--allow_single_process", action="store_true", help=(
         "With --distributed: proceed single-process when the distributed "
-        "runtime fails to initialize even though the environment looks like "
-        "a multi-host slice (normally a fatal error: degraded hosts would "
+        "runtime fails to initialize even though a coordinator is "
+        "configured (normally a fatal error: degraded processes would "
         "each compute a partial mesh and race on part-00000)"))
     p.add_argument("--capacity_per_device", type=int, default=0, help=(
         "Per-device hit-buffer slots for the mesh ring sweep (0 = auto: "
@@ -104,17 +104,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", default="", help=(
         "If set, capture a jax.profiler trace of the sweep into this "
         "directory (view with TensorBoard / xprof)"))
-    p.add_argument("--indexed_panels", action=argparse.BooleanOptionalAction,
-                   default=None, help=(
-        "Pallas kernel panel addressing: scalar-prefetch indexing straight "
-        "into HBM storage (no per-step panel slice copies) vs sliced "
-        "panels. Default: the engine's tuned default (KingConfig)"))
-    p.add_argument("--tile_i", type=int, default=0, help=(
-        "Pallas kernel i-tile edge (0 = tuned default, 256). 512 with "
-        "LIBTPU_INIT_ARGS=--xla_tpu_scoped_vmem_limit_kib=65536 measures "
-        "+1.5%% (docs/PERF.md); without the raised limit it fails compile"))
-    p.add_argument("--tile_j", type=int, default=0, help=(
-        "Pallas kernel j-tile edge (0 = tuned default, 256)"))
     p.add_argument("--quiet", action="store_true", help="Suppress stage logs")
     return p
 
@@ -123,10 +112,10 @@ def _run_mesh_sweep(args, panel_storage, metadata, config, logger):
     """Multi-chip path: sample-sharded planes, ppermute ring over the mesh
     (cuking_tpu.parallel.ring) instead of the single-chip panel sweep.
 
-    With --distributed the mesh spans every chip in the pod slice and each
+    With --distributed the mesh spans every device of every process and each
     host extracts only its own devices' result buffers (share-nothing
     outputs, like the reference's independent shards, README.md:102)."""
-    from cuking_tpu.models.king import _resolve_indexed_kernel, _resolve_kernel
+    from cuking_tpu.models.king import _resolve_kernel
     from cuking_tpu.parallel.distributed import HostShardedStorage
     from cuking_tpu.parallel.ring import (
         all_pairs_presharded,
@@ -162,9 +151,7 @@ def _run_mesh_sweep(args, panel_storage, metadata, config, logger):
                 capacity_per_device=capacity,
                 max_results=args.max_results,
                 sub_panel=config.panel,
-                row_multiple=_mesh_row_multiple(config),
                 row_offset=begin,
-                indexed_kernel=_resolve_indexed_kernel(config),
             )
         else:
             (i_begin, i_count), (j_begin, j_count) = panel_storage.ranges
@@ -177,8 +164,6 @@ def _run_mesh_sweep(args, panel_storage, metadata, config, logger):
                 capacity_per_device=capacity,
                 max_results=args.max_results,
                 sub_panel=config.panel,
-                row_multiple=_mesh_row_multiple(config),
-                indexed_kernel=_resolve_indexed_kernel(config),
             )
     else:
         # Ring sweep of THIS shard (any --split_factor): a diagonal shard
@@ -190,10 +175,8 @@ def _run_mesh_sweep(args, panel_storage, metadata, config, logger):
             _resolve_kernel(config),
             kin_threshold=args.kin_threshold,
             capacity_per_device=capacity,
-            row_multiple=_mesh_row_multiple(config),
             max_results=args.max_results,
             sub_panel=config.panel,
-            indexed_kernel=_resolve_indexed_kernel(config),
         )
     if args.distributed:
         return ring_output_local_resultset(out, args.max_results)
@@ -201,27 +184,12 @@ def _run_mesh_sweep(args, panel_storage, metadata, config, logger):
 
 
 def _multihost_context_reason() -> str | None:
-    """A human-readable reason the current environment looks like a
-    multi-host TPU slice, or None for a plain local run.
-
-    Covers both explicitly-configured coordinators and the GCE/GKE pod-slice
-    case where jax auto-detects the coordinator from TPU metadata and sets
-    topology env vars instead (TPU_WORKER_HOSTNAMES lists every worker)."""
-    import os
-
-    for k in (
-        "JAX_COORDINATOR_ADDRESS",
-        "COORDINATOR_ADDRESS",
-        "MEGASCALE_COORDINATOR_ADDRESS",
-    ):
+    """A human-readable reason the current environment names a distributed
+    coordinator (so this is meant to be a multi-process run), or None for a
+    plain local run."""
+    for k in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS"):
         if os.environ.get(k):
             return f"{k} is set"
-    hostnames = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    if "," in hostnames:
-        return f"TPU_WORKER_HOSTNAMES lists {hostnames.count(',') + 1} workers"
-    num_slices = os.environ.get("MEGASCALE_NUM_SLICES", "")
-    if num_slices.isdigit() and int(num_slices) > 1:
-        return f"MEGASCALE_NUM_SLICES={num_slices}"
     return None
 
 
@@ -230,23 +198,6 @@ def _make_mesh():
     from jax.sharding import Mesh
 
     return Mesh(np.array(jax.devices()), axis_names=("samples",))
-
-
-def _mesh_row_multiple(config: KingConfig) -> int:
-    """Per-device row-count multiple for the ring sweep: the Pallas kernel
-    needs tile-divisible panels (including any --tile_i/--tile_j override —
-    the ring's sub-panel and row offsets are all multiples of this, which
-    keeps the indexed kernel's block-offset contract, king_pallas.py);
-    other kernels take any size."""
-    from cuking_tpu.models.king import resolve_kernel_name
-
-    if resolve_kernel_name(config) == "pallas":
-        import math
-
-        from cuking_tpu.ops.king_pallas import TILE_I, TILE_J
-
-        return math.lcm(config.tile_i or TILE_I, config.tile_j or TILE_J)
-    return 1
 
 
 def run(args: argparse.Namespace) -> None:
@@ -261,16 +212,6 @@ def run(args: argparse.Namespace) -> None:
         raise InvalidArgumentError("Invalid split factor")
     if args.shard_index >= num_shards(args.split_factor) or args.shard_index < 0:
         raise InvalidArgumentError("Invalid shard index")
-    # Tile overrides fail here, not as a bare trace-time assert after
-    # ingest: the kernel requires the (possibly shrunk) panel to be a
-    # multiple of the selected tile min(tile, panel) (king_pallas.py).
-    for name, tile in (("--tile_i", args.tile_i), ("--tile_j", args.tile_j)):
-        if tile < 0:
-            raise InvalidArgumentError(f"Invalid {name}: {tile}")
-        if tile and args.panel % min(tile, args.panel):
-            raise InvalidArgumentError(
-                f"{name}={tile} does not divide --panel={args.panel}"
-            )
     if args.distributed:
         args.use_mesh = True
 
@@ -287,21 +228,17 @@ def run(args: argparse.Namespace) -> None:
             if not jax.distributed.is_initialized():
                 jax.distributed.initialize()
         except Exception:
-            # A multi-host slice whose coordinator fails to come up must be
-            # fatal: silently continuing would give every host
+            # A multi-process run whose coordinator fails to come up must
+            # be fatal: silently continuing would give every process
             # process_index()==0, a local-only mesh, a full-cohort bitset per
             # host (defeating the sharded memory model), and races on
             # part-00000.  Only proceed single-process when nothing in the
-            # environment says this is a multi-host run (local dev) — on
-            # GCE/GKE pod slices the coordinator is auto-detected from TPU
-            # metadata with NO env vars set, so explicit coordinator vars
-            # alone are not a sufficient signal; check the TPU runtime's own
-            # topology markers too.
+            # environment names a coordinator (local dev).
             reason = _multihost_context_reason()
             if reason and not args.allow_single_process:
                 raise FailedPreconditionError(
                     "jax.distributed.initialize() failed in what looks like "
-                    f"a multi-host slice ({reason}); refusing to degrade to "
+                    f"a multi-process run ({reason}); refusing to degrade to "
                     "a single-process mesh. Re-run the task, or pass "
                     "--allow_single_process to override."
                 )
@@ -318,7 +255,7 @@ def run(args: argparse.Namespace) -> None:
         )
         logger.print(
             f"Initialized distributed runtime: host {jax.process_index()} "
-            f"of {jax.process_count()}, {jax.device_count()} chips total."
+            f"of {jax.process_count()}, {jax.device_count()} devices total."
         )
 
     if args.skip_existing:
@@ -332,9 +269,10 @@ def run(args: argparse.Namespace) -> None:
         # safe because partition writes are idempotent (README.md:102).
         mine_exists = partition_is_valid(storage, part_uri)
         if args.distributed:
-            # The skip decision must be COLLECTIVE: the ring sweep spans every
-            # chip in the slice, so a host that returns early while others
-            # enter the shard_map would deadlock the collective.  Skip only
+            # The skip decision must be COLLECTIVE: the ring sweep spans
+            # every device of every process, so a host that returns early
+            # while others enter the shard_map would deadlock the
+            # collective.  Skip only
             # when every host's partition exists; otherwise all hosts
             # recompute (idempotent per-partition rewrites, README.md:102).
             import jax
@@ -358,25 +296,19 @@ def run(args: argparse.Namespace) -> None:
         metadata.num_samples, args.split_factor, args.shard_index
     )
     # Small cohorts don't need the full default panel: shrink to the
-    # smallest power of two covering the shard (≥128 to stay tile-friendly)
-    # so padding work doesn't dominate.
+    # smallest power of two covering the shard (≥128) so padding work
+    # doesn't dominate.
     from cuking_tpu.models.king import _ceil_pow2
 
     shard_n = max(submatrix.num_rows, submatrix.num_cols, 1)
     panel = min(args.panel, max(128, _ceil_pow2(shard_n)))
-    config_kw = {}
-    if args.indexed_panels is not None:
-        config_kw["indexed_panels"] = args.indexed_panels
     config = KingConfig(
         kin_threshold=args.kin_threshold,
         max_results=args.max_results,
         panel=panel,
         kernel=args.kernel,
         result_capacity=args.result_capacity,
-        tile_i=args.tile_i,
-        tile_j=args.tile_j,
         verbose=not args.quiet,
-        **config_kw,
     )
 
     layout = PlaneLayout.create(metadata.num_sites)
@@ -392,19 +324,17 @@ def run(args: argparse.Namespace) -> None:
         from cuking_tpu.parallel.ring import default_capacity_per_device
 
         n_dev = len(_jax.devices())
-        rm = _mesh_row_multiple(config)
         capacity = args.capacity_per_device or default_capacity_per_device(
             args.max_results, n_dev
         )
         # Per-shard model; on overflow the error names the minimal
         # --split_factor that fits (it composes with --use_mesh AND
-        # --distributed).  HostShardedStorage pads rows only to the row
+        # --distributed).  HostShardedStorage pads rows only to a device
         # multiple (panel=1); PanelStorage pads to a panel multiple first.
         check_ring_fit(
             metadata.num_samples, layout.words, 0, capacity, n_dev,
             submatrix=submatrix,
             panel=1 if args.distributed else panel,
-            row_multiple=rm,
             split_factor=args.split_factor,
             max_results=args.max_results,
         )
@@ -416,12 +346,11 @@ def run(args: argparse.Namespace) -> None:
 
     if args.distributed:
         # Host-sharded storage: this host materializes only the sample
-        # row-blocks its local chips own (no full-cohort bitset per host).
+        # row-blocks its local devices own (no full-cohort bitset per host).
         from cuking_tpu.parallel.distributed import HostShardedStorage
 
         panel_storage = HostShardedStorage(
             layout, metadata.num_samples, _make_mesh(),
-            row_multiple=_mesh_row_multiple(config),
             submatrix=submatrix,
         )
     else:
@@ -474,9 +403,9 @@ def run(args: argparse.Namespace) -> None:
 def main(argv: list[str] | None = None) -> int:
     # Parse first: --help and bad-flag exits must not pay the jax import.
     args = build_parser().parse_args(argv)
-    from cuking_tpu.utils.platform import apply_platform_override
+    from cuking_tpu.utils.compile_cache import enable_compile_cache
 
-    apply_platform_override()
+    enable_compile_cache()
     try:
         run(args)
     except CukingError as e:

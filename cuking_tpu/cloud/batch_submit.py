@@ -1,9 +1,11 @@
-"""Shard fan-out via GCP Cloud Batch on single-chip TPU VMs (C16).
+"""Shard fan-out via GCP Cloud Batch on GPU VMs (C16).
 
-Mirror of the reference's cloud_batch_submit.py:36-130, retargeted from
-`a2-highgpu-1g` GPU VMs to single-chip TPU VMs (`ct5lp-hightpu-1t` by
-default): renders a Batch job JSON with ``taskCount = k(k+1)/2`` — one task
-per upper-triangular shard — where every task runs the cuking_tpu container
+Mirror of the reference's cloud_batch_submit.py:36-130, which gives each
+shard one A100 (`a2-highgpu-1g`); here each shard gets one H100 by default
+(`a3-highgpu-1g`, `nvidia-h100-80gb`), with the machine type and the
+accelerator's type and count as arguments: renders a Batch job JSON with
+``taskCount = k(k+1)/2`` — one task per upper-triangular shard — where
+every task runs the cuking_tpu container
 with ``--shard_index=$BATCH_TASK_INDEX``, submits it with ``gcloud batch
 jobs submit``, and (optionally) polls job state every 5 minutes until
 ``SUCCEEDED``, then writes a ``_SUCCESS`` sentinel into the output
@@ -42,8 +44,9 @@ def render_batch_job(
     docker_image: str,
     requester_pays_project: str = "",
     service_account: str = "",
-    machine_type: str = "ct5lp-hightpu-1t",
-    tpu_topology: str = "1x1",
+    machine_type: str = "a3-highgpu-1g",
+    accelerator_type: str = "nvidia-h100-80gb",
+    accelerator_count: int = 1,
     cpu_milli: int = 12000,
     memory_mib: int = 87040,
     max_run_duration_s: int = 36000,
@@ -52,12 +55,13 @@ def render_batch_job(
     """Renders the Cloud Batch job spec (cloud_batch_submit.py:36-77).
 
     Same task shape as the reference (12 vCPU / 85 GiB / 36,000 s budget per
-    shard); the accelerator swaps from one A100 to one TPU chip addressed via
-    the VM's /dev/vfio devices, which Batch exposes to privileged containers.
+    shard); the accelerator is ``accelerator_count`` GPUs of
+    ``accelerator_type``, and Batch installs the NVIDIA driver on the VM and
+    exposes the GPUs to the container.
 
     ``extra_cli_args`` are appended to every task's cuking_tpu command —
-    e.g. ``("--use_mesh",)`` to sweep each shard over all chips of a
-    multi-chip task VM (--use_mesh composes with --split_factor), or
+    e.g. ``("--use_mesh",)`` to sweep each shard over all GPUs of a
+    multi-GPU task VM (--use_mesh composes with --split_factor), or
     ``("--skip_existing",)`` for idempotent resubmits.  Each argument is
     shell-quoted: it reaches the task's argv as ONE word, with no shell
     expansion inside it (the command runs under ``/bin/sh -c``).
@@ -84,7 +88,7 @@ def render_batch_job(
                         {
                             "container": {
                                 "imageUri": docker_image,
-                                "options": "--privileged --network=host",
+                                "options": "--network=host",
                                 "entrypoint": "/bin/sh",
                                 "commands": ["-c", cuking_cmd],
                             }
@@ -109,12 +113,12 @@ def render_batch_job(
                         "machineType": machine_type,
                         "accelerators": [
                             {
-                                "type": "tpu-v5-lite-podslice",
-                                "count": 1,
-                                "topology": tpu_topology,
+                                "type": accelerator_type,
+                                "count": accelerator_count,
                             }
                         ],
-                    }
+                    },
+                    "installGpuDrivers": True,
                 }
             ]
         },
@@ -234,15 +238,15 @@ def wait_for_completion(
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=(
-            "Fan a sharded cuking_tpu run out over independent single-chip "
-            "TPU-VM Cloud Batch tasks."
+            "Fan a sharded cuking_tpu run out over independent GPU "
+            "Cloud Batch tasks."
         )
     )
     # Flag names follow the reference submitter (cloud_batch_submit.py:11-34)
     # so existing pipelines swap in directly; --docker-image is the escape
     # hatch when the image isn't at the conventional registry path.
     p.add_argument("--location", default="us-central1",
-                   help="GCP region for the Batch job and TPU VMs")
+                   help="GCP region for the Batch job and GPU VMs")
     p.add_argument("--project-id", default="",
                    help="GCP project (defaults to the gcloud config project)")
     p.add_argument("--tag-name", default="latest",
@@ -263,13 +267,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="User project for Requester Pays buckets")
     p.add_argument("--docker-image", default="",
                    help="Full image URI (overrides --project-id/--tag-name)")
-    p.add_argument("--machine-type", default="ct5lp-hightpu-1t",
-                   help="TPU VM machine type (one chip per shard)")
+    p.add_argument("--machine-type", default="a3-highgpu-1g",
+                   help="GPU VM machine type of each shard's task")
+    p.add_argument("--accelerator-type", default="nvidia-h100-80gb",
+                   help="GPU type attached to each task VM")
+    p.add_argument("--accelerator-count", type=int, default=1,
+                   help="GPUs per task VM (more than one: add "
+                        "--cuking-arg=--use_mesh)")
     p.add_argument("--cuking-arg", action="append", default=[],
                    dest="cuking_args", metavar="ARG",
                    help="Extra cuking_tpu CLI flag appended to every task "
                         "verbatim (repeatable) — e.g. --cuking-arg=--use_mesh "
-                        "on a multi-chip machine type, or "
+                        "on a multi-GPU machine type, or "
                         "--cuking-arg=--skip_existing for idempotent "
                         "resubmits")
     p.add_argument("--render-only", action="store_true",
@@ -296,6 +305,8 @@ def main(argv: list[str] | None = None) -> int:
         service_account=args.service_account,
         docker_image=docker_image,
         machine_type=args.machine_type,
+        accelerator_type=args.accelerator_type,
+        accelerator_count=args.accelerator_count,
         extra_cli_args=tuple(args.cuking_args),
     )
     if args.render_only:

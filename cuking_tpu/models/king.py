@@ -1,16 +1,16 @@
 """KingEngine — the flagship model: all-pairs KING over packed planes.
 
-This is the TPU-native equivalent of the reference's host pipeline + kernel
-launch (cuking.cu:435-751), redesigned for XLA's compilation model:
+This is the equivalent of the reference's host pipeline + kernel launch
+(cuking.cu:435-751), redesigned for XLA's compilation model:
 
 * The pair matrix is swept in fixed-size **sample panels** (default 1024).
   One jitted panel-pair step — dynamic-slice panels out of HBM, run a count
   kernel, apply the fp32 epilogue, threshold, compact — is compiled ONCE and
   replayed over every (i-panel, j-panel) with i ≤ j.  Static shapes
   throughout; no data-dependent control flow inside jit.
-* Within a panel pair, the count kernel is selectable: ``popcount`` (VPU
-  semantics baseline), ``matmul`` (XLA int8 MXU), or ``pallas`` (fused
-  unpack+matmul TPU kernel, the fast path).
+* Within a panel pair, the count kernel is selectable: ``popcount``
+  (semantics baseline) or ``matmul`` (int8 indicator matmul, which XLA hands
+  to cuBLAS on the GPU — the fast path).
 * Sample storage follows the reference's shard layout: the Submatrix i-range
   stored before the j-range (cuking.cu:171-175), each padded to a panel
   multiple with all-missing samples (padding self-masks: zero counters, NaN
@@ -73,36 +73,11 @@ class KingConfig:
     kin_threshold: float = DEFAULT_KIN_THRESHOLD
     max_results: int = DEFAULT_MAX_RESULTS
     panel: int = 1024               # samples per panel (pair tile edge)
-    kernel: str = "auto"            # auto | popcount | matmul | pallas
-    site_chunk_words: int = 128     # uint32 words per site-chunk in mm/pallas
+    kernel: str = "auto"            # auto | popcount | matmul
+    site_chunk_words: int = 128     # uint32 words per site-chunk (matmul)
     popcount_row_block: int = 8     # i-rows per popcount map step
     sweep_batch: int = 64           # panel-pair steps fused into one dispatch
     result_capacity: int = 0        # device result-buffer slots (0 = auto)
-    # Pallas only: index panels straight out of the full plane storage via
-    # scalar prefetch instead of materializing dynamic-slice copies — at
-    # gnomAD-scale W the slices are ~257 MiB of pure HBM copy per step.
-    # Default ON since round 5: measured bit-exact vs the sliced path on a
-    # real chip and +4% at the 1M-site BASELINE regime (19.9 vs 19.1 M
-    # pairs/s; tools/ab_indexed_u16.py).  Off switch kept for A/B
-    # measurement (tools/tune_pallas.py).
-    indexed_panels: bool = True
-    # Pallas only: VMEM spent on the unpacked int8 tiles per site chunk
-    # (0 = the kernel's conservative default).  Governs the largest legal
-    # site chunk — raising it trades VMEM for fewer accumulator sweeps at
-    # long W (tools/tune_pallas.py sweeps the combinations).
-    vmem_budget: int = 0
-    # Pallas only: kernel tile edges (0 = the kernel's TILE_I/TILE_J
-    # defaults, 256).  tile_i=512 with vmem_budget≈20 MiB measures +1.5%
-    # at both site regimes (tools/vmem_probe.py) but only compiles with
-    # Mosaic's scoped-VMEM limit raised
-    # (LIBTPU_INIT_ARGS=--xla_tpu_scoped_vmem_limit_kib=65536), so it is
-    # an opt-in, not the default; bench.py opts in with a probe-verified
-    # fallback.
-    tile_i: int = 0
-    tile_j: int = 0
-    # Pallas only: run the kernel in interpret mode (tests/CPU — lets the
-    # engine's pallas wiring, incl. indexed_panels, run without a TPU).
-    pallas_interpret: bool = False
     verbose: bool = False
 
     def resolved_result_capacity(self) -> int:
@@ -146,7 +121,7 @@ def _slice_hits(bufs, n):
     """Stacks the first ``n`` slots of the six result buffers into one
     [6, n] int32 array (kin bitcast) so the host pays a SINGLE device→host
     transfer for the whole sweep's results (six per-field fetches would cost
-    a host↔device round-trip each — ~25 ms through a TPU runtime)."""
+    a host↔device round trip each)."""
     return jnp.stack(
         [
             bufs[0][:n],
@@ -159,11 +134,24 @@ def _slice_hits(bufs, n):
     )
 
 
+# The count kernel ``kernel="auto"`` picks on each platform.  On the GPU the
+# plain-XLA matmul (cuBLAS int8 GEMM) measured 2.3x faster end to end than a
+# fused Pallas/Triton kernel (PERF.md), so both platforms use it.
+_AUTO_KERNEL = {"gpu": "matmul", "cpu": "matmul"}
+
+
 def resolve_kernel_name(config: KingConfig) -> str:
-    """'auto' → the fast path for the current backend."""
-    if config.kernel == "auto":
-        return "pallas" if jax.default_backend() == "tpu" else "matmul"
-    return config.kernel
+    """'auto' → the fast path for the current backend; an explicit name is
+    returned as given.  Raises on a platform with no kernel of its own."""
+    if config.kernel != "auto":
+        return config.kernel
+    platform = jax.default_backend()
+    if platform not in _AUTO_KERNEL:
+        raise InvalidArgumentError(
+            f"No count kernel for platform '{platform}'; pass --kernel "
+            f"explicitly (one of popcount, matmul)."
+        )
+    return _AUTO_KERNEL[platform]
 
 
 def _resolve_kernel(config: KingConfig) -> Callable:
@@ -172,54 +160,7 @@ def _resolve_kernel(config: KingConfig) -> Callable:
         return partial(panel_counts_popcount, row_block=config.popcount_row_block)
     if name == "matmul":
         return partial(panel_counts_matmul, site_chunk_words=config.site_chunk_words)
-    if name == "pallas":
-        from cuking_tpu.ops.king_pallas import (
-            TILE_I,
-            TILE_J,
-            VMEM_BUDGET,
-            panel_counts_pallas,
-        )
-
-        return partial(
-            panel_counts_pallas,
-            site_chunk_words=config.site_chunk_words,
-            tile_i=config.tile_i or TILE_I,
-            tile_j=config.tile_j or TILE_J,
-            vmem_budget=config.vmem_budget or VMEM_BUDGET,
-            interpret=config.pallas_interpret,
-        )
     raise InvalidArgumentError(f"Unknown kernel: {config.kernel}")
-
-
-def _resolve_indexed_kernel(
-    config: KingConfig, site_chunk_words: int | None = None
-) -> Callable | None:
-    """The scalar-prefetch variant (full storage + row offsets, no panel
-    slice copies) when the fast Pallas path is selected; None otherwise.
-    ``site_chunk_words`` overrides the config's chunk (the engine's split-W
-    remainder kernel uses its full axis)."""
-    if not config.indexed_panels or resolve_kernel_name(config) != "pallas":
-        return None
-    from cuking_tpu.ops.king_pallas import (
-        TILE_I,
-        TILE_J,
-        VMEM_BUDGET,
-        panel_counts_pallas_indexed,
-    )
-
-    return partial(
-        panel_counts_pallas_indexed,
-        panel=config.panel,
-        site_chunk_words=(
-            config.site_chunk_words
-            if site_chunk_words is None
-            else site_chunk_words
-        ),
-        tile_i=config.tile_i or TILE_I,
-        tile_j=config.tile_j or TILE_J,
-        vmem_budget=config.vmem_budget or VMEM_BUDGET,
-        interpret=config.pallas_interpret,
-    )
 
 
 class PanelStorage:
@@ -313,42 +254,9 @@ class KingEngine:
         self.storage = storage
         self.logger = logger or StageLogger(enabled=self.config.verbose)
         self._kernel = _resolve_kernel(self.config)
-        self._indexed_kernel = _resolve_indexed_kernel(self.config)
-        # indexed_panels × split-needing W (words_multiple < 128 layouts
-        # whose W admits no Mosaic-legal site chunk): keep TWO resident
-        # arrays — the 128-aligned prefix and the <128-word remainder — so
-        # every panel pair runs as two scalar-prefetch kernel calls whose
-        # counters add, instead of degrading to per-step panel slice copies
-        # (the in-kernel fallback, king_pallas.py).  This composes the two
-        # padding/copy savings at the 100k-site regime (docs/PERF.md).  The
-        # legality test mirrors the kernel's own chunk selection so a W
-        # whose full axis is a legal single chunk stays one array.
-        w = storage.layout.words
-        self._w_split = None
-        if self._indexed_kernel is not None and w > 128 and w % 128:
-            from cuking_tpu.ops.king_pallas import (
-                TILE_I,
-                TILE_J,
-                VMEM_BUDGET,
-                _select_chunk,
-            )
-
-            ti = min(self.config.tile_i or TILE_I, self.config.panel)
-            tj = min(self.config.tile_j or TILE_J, self.config.panel)
-            budget = self.config.vmem_budget or VMEM_BUDGET
-            bound = min(self.config.site_chunk_words, w,
-                        max(1, budget // (3 * 32 * (ti + tj))))
-            if _select_chunk(w, bound, False) is None:
-                w1 = w - (w % 128)
-                self._w_split = (w1, w - w1)
-                self._indexed_kernel_rem = _resolve_indexed_kernel(
-                    self.config, site_chunk_words=w - w1  # its full axis
-                )
         self._sweep = self._build_sweep()
         self._planes_dev_cache = None
         self._planes_dev_version = None
-        self._split_dev_cache = None
-        self._split_dev_version = None
 
     @property
     def planes_dev(self) -> jnp.ndarray:
@@ -364,33 +272,8 @@ class KingEngine:
             self._planes_dev_version = version
         return self._planes_dev_cache
 
-    def _sweep_planes(self):
-        """What the jitted sweep consumes: ``planes_dev`` itself, or — for
-        the indexed × split-W composition (see __init__) — a (prefix,
-        remainder) tuple uploaded once per storage version.  The halves
-        are uploaded STRAIGHT from host storage, never by slicing
-        ``planes_dev``: routing through the full device array would keep
-        full + prefix + remainder resident together (2× the bitset in
-        HBM), silently defeating the up-front capacity check
-        (utils/hbm.check_engine_fit counts the planes once).  The lazy
-        ``planes_dev`` single-array contract for bench tooling is
-        untouched — it just isn't materialized on this path."""
-        if self._w_split is None:
-            return self.planes_dev
-        version = getattr(self.storage, "version", None)
-        if self._split_dev_cache is None or self._split_dev_version != version:
-            w1 = self._w_split[0]
-            host = self.storage.planes
-            self._split_dev_cache = (
-                jnp.asarray(host[:, :, :w1]),
-                jnp.asarray(np.ascontiguousarray(host[:, :, w1:])),
-            )
-            self._split_dev_version = version
-        return self._split_dev_cache
-
     def refresh_planes(self) -> None:
         self._planes_dev_cache = None
-        self._split_dev_cache = None
 
     # -- constructors ------------------------------------------------------
 
@@ -421,10 +304,10 @@ class KingEngine:
     #
     # All panel-pair steps of one dispatch are fused into a lax.scan over a
     # device-resident parameter array, so the host pays ONE dispatch per
-    # batch (host↔device latency through a TPU runtime is tens of ms;
-    # per-step syncs would dominate the ~6 ms kernel).  Hits accumulate into
-    # one device-resident fixed-capacity buffer threaded through the scan
-    # carry AND across batch dispatches (donated, so XLA updates it in
+    # batch instead of one host↔device round trip per panel pair.  Hits
+    # accumulate into one device-resident fixed-capacity buffer threaded
+    # through the scan carry AND across batch dispatches (donated, so XLA
+    # updates it in
     # place) with a running-offset cursor — the reference's result model
     # exactly (one preallocated array + a global slot counter,
     # cuking.cu:296-313, 713-723).  The scatter is cond-gated so steps with
@@ -441,25 +324,9 @@ class KingEngine:
         i_off, j_off, gi_base, gj_base, ni_valid, nj_valid = (
             row[0], row[1], row[2], row[3], row[4], row[5]
         )
-        # Diagonal panel pairs (same global base) let the Pallas kernel skip
-        # lower-triangle tiles; the i<j mask below discards them regardless.
-        tri = (gi_base == gj_base).astype(jnp.int32)
-        if self._w_split is not None:
-            # Two resident arrays (prefix + remainder; see __init__): two
-            # scalar-prefetch calls, counters add (disjoint site ranges;
-            # tri-skipped tiles are garbage in both and masked below).
-            main = self._indexed_kernel(planes[0], i_off, j_off, tri)
-            rem = self._indexed_kernel_rem(planes[1], i_off, j_off, tri)
-            counts = type(main)(*(a + b for a, b in zip(main, rem)))
-        elif self._indexed_kernel is not None:
-            # Scalar-prefetch path: the kernel DMAs its tiles straight out
-            # of the full storage — no [2, panel, W] slice copies (two
-            # ~257 MiB HBM round-trips per step at 1M sites).
-            counts = self._indexed_kernel(planes, i_off, j_off, tri)
-        else:
-            pi = lax.dynamic_slice(planes, (0, i_off, 0), (2, panel, words))
-            pj = lax.dynamic_slice(planes, (0, j_off, 0), (2, panel, words))
-            counts = self._kernel(pi, pj, tri)
+        pi = lax.dynamic_slice(planes, (0, i_off, 0), (2, panel, words))
+        pj = lax.dynamic_slice(planes, (0, j_off, 0), (2, panel, words))
+        counts = self._kernel(pi, pj)
         res = king_from_counts(counts)
 
         local = jnp.arange(panel, dtype=jnp.int32)
@@ -569,7 +436,7 @@ class KingEngine:
         (cuking.cu:747-751 semantics, enforced mid-flight)."""
         cfg = self.config
         st = self.storage
-        planes_dev = self._sweep_planes()
+        planes_dev = self.planes_dev
         threshold = jnp.float32(cfg.kin_threshold)
         sweep = self._get_sweep(capacity)
 

@@ -1,4 +1,4 @@
-"""Packed 2-bit-plane genotype store — the TPU-native layout.
+"""Packed 2-bit-plane genotype store.
 
 Semantics contract (mirrors cuking.cu:507-524, 674-703):
 
@@ -11,11 +11,12 @@ Semantics contract (mirrors cuking.cu:507-524, 674-703):
 * Site padding past ``num_sites`` is never written, stays missing, and
   therefore self-masks out of every counter (cuking.cu:497-500, 522-523).
 
-Layout (TPU-native, deliberately different from the reference's interleaved
-per-sample uint64 blob): planes are a single ``uint32`` array of shape
+Layout (deliberately different from the reference's interleaved per-sample
+uint64 blob): planes are a single ``uint32`` array of shape
 ``[2, num_stored_samples, W]`` — plane 0 = het, plane 1 = hom — where
-``W = ceil(num_sites / 32)`` rounded up to a lane-friendly multiple.  32-bit
-words match the TPU's native lane width and ``jax.lax.population_count``.
+``W = ceil(num_sites / 32)`` rounded up to a multiple of
+``DEFAULT_WORDS_MULTIPLE``.  32-bit words suit ``jax.lax.population_count``
+and the 32-shift unpack below.
 
 Site → (word, bit) mapping is **bit-plane-major**: site ``s`` lives in word
 ``s % W`` at bit ``s // W``.  All six KING counters are permutation-invariant
@@ -35,15 +36,10 @@ from cuking_tpu.utils.status import FailedPreconditionError
 
 HET, HOM = 0, 1  # plane indices
 
-# Default word-count multiple.  Site padding is pure wasted MXU work — at
-# 100k sites, 512 pads 14.7%, 128 pads 2.4%, 64 pads 0.35%
-# (tools/tune_pallas.py sweep: 163 → 200 → 204 M pairs/s on v5e).  64 is
-# not Mosaic-lane-aligned (128), so the Pallas paths cover a non-128-
-# multiple W with a 128-aligned prefix call plus a <128-word full-axis
-# remainder call (king_pallas.py site-axis split; the engine keeps the two
-# halves as separate resident arrays under indexed_panels) — measured
-# engine-level win on-chip, 203.6 vs 200.2 M pairs/s at 100k sites
-# (tools/engine_wm_ab.py, 2026-08-19).
+# Default word-count multiple.  Site padding is pure wasted matmul work — at
+# 100k sites, 512 pads 14.7%, 128 pads 2.4%, 64 pads 0.35% — so the multiple
+# is kept small; 64 words still leaves W with many divisors for the matmul
+# path's site chunks.
 DEFAULT_WORDS_MULTIPLE = 64
 
 

@@ -30,8 +30,7 @@ class CompactedPanel(NamedTuple):
 
 
 # Plain Python scalars only: a jnp scalar here would initialize the JAX
-# backend at import time, making `import cuking_tpu` block on an unreachable
-# TPU runtime even for CPU-only tools.
+# backend at import time, so `import cuking_tpu` would claim a device.
 FIELD_FILLS = (-1, -1, 0.0, 0, 0, 0)  # i, j, kin, ibs0/1/2
 FIELD_DTYPES = (jnp.int32, jnp.int32, jnp.float32, jnp.int32, jnp.int32,
                 jnp.int32)
@@ -102,17 +101,18 @@ def accumulate_hits(
     (cuking.cu:296-313): totals stay exact past capacity (overflow is
     detected from the final count, never lost).
 
-    TPU scatters cost O(lanes executed) regardless of hit count — six
-    full-panel 1M-update scatters measured 31 ms on a v5e, wiping out the
-    ~5 ms kernel step.  The fast path therefore GATHERS first: the mask is
-    split into row blocks, each block extracts its ≤ KB hit-lane indices
-    with a batched ``top_k`` over index-or-(-1) keys (~1.4 ms), the six
-    fields are gathered at those lanes, and only the ~2¹⁴ candidate lanes
-    are scattered (~0.4 ms).  Hit ORDER within the buffer is block-major,
+    A scatter costs O(lanes executed) regardless of hit count, so a naive
+    path pays six full-panel 1M-update scatters on every hit-bearing step.
+    The fast path therefore GATHERS first: the mask
+    is split into row blocks, each block extracts its ≤ KB hit-lane indices
+    with a batched ``top_k`` over index-or-(-1) keys, the six fields are
+    gathered at those lanes, and only the ~2¹⁴ candidate lanes are
+    scattered.  Whether this still pays on the GPU is not measured yet
+    (ROADMAP Speed #6).  Hit ORDER within the buffer is block-major,
     not row-major — callers sort by (i, j, kin) at the end regardless
     (cuking.cu:761-765).  A step where any block's hit count exceeds its
     candidate quota cond-falls-back to the exact full-panel scatter, so any
-    hit density remains exact (tools/scatter_microbench[3,4].py)."""
+    hit density remains exact."""
     flat = mask.ravel()
     n = flat.size
     ni = mask.shape[0] if mask.ndim == 2 else 1

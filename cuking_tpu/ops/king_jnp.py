@@ -1,11 +1,11 @@
 """Reference-semantics popcount path (plain jnp, any backend).
 
-This is the direct TPU/VPU analogue of the reference's per-pair strided
+This is the direct analogue of the reference's per-pair strided
 popcount loop (cuking.cu:216-240): for every pair in an (i-panel, j-panel)
 tile, AND the packed planes word-wise and ``jax.lax.population_count`` the
 six masked combinations.  Counts are exact int32.
 
-It is the semantics baseline for the fast paths (king_mm, king_pallas) and
+It is the semantics baseline for the fast path (king_mm) and
 the bench.py "vs_baseline" denominator; memory scales with
 ``row_block · NJ · W`` so it processes i-rows in blocks."""
 
@@ -49,7 +49,6 @@ def _row_block_counts(planes_i_blk, planes_j):
 def panel_counts_popcount(
     planes_i: jnp.ndarray,
     planes_j: jnp.ndarray,
-    tri: jnp.ndarray | None = None,
     row_block: int = 8,
 ) -> KingCounts:
     """Six KING counters for all (i, j) pairs of two packed panels.
@@ -57,10 +56,7 @@ def panel_counts_popcount(
     planes_i: [2, NI, W] uint32, planes_j: [2, NJ, W] uint32 →
     six [NI, NJ] int32 count matrices.  NI must be divisible by row_block
     (panel sizes are padded powers of two throughout the engine).
-    ``tri`` (diagonal-panel hint) is accepted for kernel-interface parity
-    with king_pallas and ignored — XLA can't skip per-tile here.
     """
-    del tri
     ni = planes_i.shape[1]
     row_block = min(row_block, ni)
     while ni % row_block:  # largest divisor of ni not exceeding row_block

@@ -17,13 +17,22 @@ preserved: the numerator folds left-to-right as
 ``((2f*bh - 4f*oh) - hi) - hj``, and the denominator is materialized as
 ``4f * min_hets`` before the division.  ``min_hets == 0`` produces IEEE
 inf/NaN exactly like the reference (NaN fails the strict ``kin > threshold``
-test; +inf passes it)."""
+test; +inf passes it).
+
+The division must round like IEEE ``div.rn``, as the reference's CUDA ``/``
+does.  XLA:GPU lowers an f32 division to PTX ``div.full.f32``, an
+approximation within 2 ulp (on an H100 about 28% of kin values came out
+1 ulp off), so ``_div_rn`` divides exactly in integer arithmetic instead;
+on the CPU it equals the hardware division bit for bit.  The other epilogue
+operations lower to ``mul.rn``/``sub.rn``/``add.rn``, which no FMA
+contraction may touch."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import jax.numpy as jnp
+from jax import lax
 
 
 class KingCounts(NamedTuple):
@@ -45,6 +54,40 @@ class KingResult(NamedTuple):
     ibs2: jnp.ndarray  # int32
 
 
+_QUOTIENT_BITS = 27  # ≥ 26 significant bits: 24 + round + one below it
+
+
+def _div_rn(numer: jnp.ndarray, denom: jnp.ndarray) -> jnp.ndarray:
+    """``numer / denom`` rounded to nearest even, for integer-valued float32
+    operands below 2^31 in magnitude (the epilogue's are) and ``denom >= 0``.
+
+    Restoring long division of the integer magnitudes, aligned so that the
+    first quotient bit has weight 2^e, gives 27 quotient bits; the
+    remainder's non-zero-ness is ORed into the lowest one (the sticky bit),
+    so the exact uint32 → float32 conversion rounds as the true quotient
+    would, and scaling by 2^(e-26) is exact.  ``denom == 0`` keeps the
+    hardware division, whose ±inf/NaN are exact."""
+    a = jnp.abs(numer).astype(jnp.uint32)
+    b = denom.astype(jnp.uint32)
+    e = lax.clz(b).astype(jnp.int32) - lax.clz(a).astype(jnp.int32)
+    # Align both to the same bit length (≤ 31, so 2·bb fits in uint32).
+    aa = a << jnp.maximum(-e, 0).astype(jnp.uint32)
+    bb = b << jnp.maximum(e, 0).astype(jnp.uint32)
+    q = jnp.zeros_like(a)
+    r = aa
+    for _ in range(_QUOTIENT_BITS):
+        bit = r >= bb
+        q = (q << 1) | bit.astype(jnp.uint32)
+        r = jnp.where(bit, r - bb, r) << 1
+    q = q | (r != 0).astype(jnp.uint32)
+    scale = lax.bitcast_convert_type(
+        (e - (_QUOTIENT_BITS - 1) + 127) << 23, jnp.float32
+    )
+    mag = q.astype(jnp.float32) * scale
+    exact = jnp.where(numer < 0, -mag, mag)
+    return jnp.where((denom == 0) | (a == 0), numer / denom, exact)
+
+
 def king_from_counts(counts: KingCounts) -> KingResult:
     """Counts → (kin, ibs0, ibs1, ibs2) with the reference's exact fp32
     op order (cuking.cu:289-307)."""
@@ -57,7 +100,7 @@ def king_from_counts(counts: KingCounts) -> KingResult:
     # ((2*bh - 4*oh) - hi) - hj, left-associative like the C expression.
     numer = jnp.float32(2.0) * bh - jnp.float32(4.0) * oh - hi - hj
     denom = jnp.float32(4.0) * min_hets
-    kin = jnp.float32(0.5) + numer / denom
+    kin = jnp.float32(0.5) + _div_rn(numer, denom)
 
     ibs0 = counts.opposing_hom
     ibs2 = counts.concordant_hom + counts.both_het

@@ -1,4 +1,4 @@
-"""MXU reformulation: KING counters as int8 indicator matmuls.
+"""Matmul reformulation: KING counters as int8 indicator matmuls.
 
 All six counters of cuking.cu:216-240 are bilinear in three per-site 0/1
 indicators per sample — H (het), A (hom-alt), D (defined) — because
@@ -16,13 +16,14 @@ sites:
 
 with XY := X_i · Y_jᵀ.  Stacking X = [H; A; D] per panel gives one
 ``[3·NI, S] × [3·NJ, S]ᵀ`` int8→int32 matmul per site-chunk that yields all
-nine blocks — this runs on the MXU (int8 systolic throughput) instead of the
-VPU, which is what makes this the fast path.  Counts stay integer-exact:
+nine blocks.  On the GPU XLA hands the dot to cuBLAS's int8 tensor-core
+GEMM, which is what makes this the fast path.  Counts stay integer-exact:
 int8 products accumulated in int32.
 
-This module is the plain-XLA version (unpack + dot_general); king_pallas.py
-fuses the unpack and matmul in VMEM so the HBM working set stays at 2
-bits/site/sample."""
+XLA does not fuse the unpack or the chunk accumulation into the GEMM: each
+site chunk writes its int8 indicators and re-reads and re-writes the
+[3·NI, 3·NJ] int32 Gram matrix through device memory (PERF.md has the
+measured split)."""
 
 from __future__ import annotations
 
@@ -76,7 +77,6 @@ def counts_from_gram(gram: jnp.ndarray, ni: int, nj: int) -> KingCounts:
 def panel_counts_matmul(
     planes_i: jnp.ndarray,
     planes_j: jnp.ndarray,
-    tri: jnp.ndarray | None = None,
     site_chunk_words: int = 128,
 ) -> KingCounts:
     """Six KING counters via the stacked-indicator matmul (plain XLA).
@@ -84,10 +84,7 @@ def panel_counts_matmul(
     planes_i: [2, NI, W] uint32, planes_j: [2, NJ, W] → six [NI, NJ] int32.
     The site axis is processed in chunks so the unpacked int8 indicators
     never exceed ``3 · N_panel · 32 · site_chunk_words`` bytes.
-    ``tri`` (diagonal-panel hint) is accepted for kernel-interface parity
-    with king_pallas and ignored — one dense dot either way.
     """
-    del tri
     ni, nj = planes_i.shape[1], planes_j.shape[1]
     w = planes_i.shape[2]
     # The chunk must divide W; rather than asserting (W's multiple depends on

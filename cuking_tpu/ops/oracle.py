@@ -36,9 +36,14 @@ def oracle_counts(g_i: np.ndarray, g_j: np.ndarray) -> KingCounts:
 
 
 def oracle_king(g_i: np.ndarray, g_j: np.ndarray):
-    """Counts → (kin fp32, ibs0/1/2) with the reference fp32 op order; numpy
-    twin of king_math.king_from_counts for hermetic test comparison."""
-    c = oracle_counts(g_i, g_j)
+    """Genotypes → (kin fp32, ibs0/1/2); see ``oracle_king_from_counts``."""
+    return oracle_king_from_counts(oracle_counts(g_i, g_j))
+
+
+def oracle_king_from_counts(c: KingCounts):
+    """Counts → (kin fp32, ibs0/1/2) with the reference fp32 op order and
+    IEEE division; numpy twin of king_math.king_from_counts for hermetic
+    test comparison."""
     bh = c.both_het.astype(np.float32)
     hi = c.het_i.astype(np.float32)
     hj = c.het_j.astype(np.float32)

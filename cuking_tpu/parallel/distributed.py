@@ -1,9 +1,9 @@
-"""Host-sharded plane storage for multi-host pod slices.
+"""Host-sharded plane storage for multi-host meshes.
 
 The reference's memory-relief mechanism is process-level sharding: each GPU
 job stores only its Submatrix's sample ranges (cuking.cu:507-517,
-README.md:94-98).  On a pod slice the analogous property is that each HOST
-materializes only the sample row-blocks its local chips own: ingest filters
+README.md:94-98).  On a multi-host mesh the analogous property is that each
+HOST materializes only the sample row-blocks its local devices own: ingest filters
 the COO entries to the host's global row ranges (exactly like the shard
 ingest filter, cuking.cu:675-678), packs them into per-device numpy blocks,
 and assembles globally-sharded ``jax.Array``s via
@@ -52,7 +52,6 @@ class HostShardedStorage:
         layout: PlaneLayout,
         num_samples: int,
         mesh: Mesh,
-        row_multiple: int = 1,
         submatrix=None,
     ):
         self.layout = layout
@@ -88,7 +87,6 @@ class HostShardedStorage:
         base = 0
         for _, length in ranges:
             nd = -(-max(length, 1) // num_devices)
-            nd = -(-nd // row_multiple) * row_multiple
             self._nd.append(nd)
             self._section_base.append(base)
             base += nd * len(self.local_blocks)

@@ -2,10 +2,11 @@
 
 The reference's only multi-device story is share-nothing process sharding via
 GCS (SURVEY.md §2 parallelism table; cloud_batch_submit.py fans out
-k(k+1)/2 independent GPU jobs).  The TPU-native design instead keeps the
-whole cohort on one pod slice: sample bit-plane panels are sharded over the
-mesh's sample axis, and a **ring exchange** (``lax.ppermute`` over ICI)
-rotates the j-panels so every block pair of the global matrix is covered.
+k(k+1)/2 independent GPU jobs).  This design instead keeps the whole cohort
+on the cards of one mesh: sample bit-plane panels are sharded over the mesh's
+flat sample axis, and a **ring exchange** (``lax.ppermute``, which XLA hands
+to NCCL over NVLink) rotates the j-panels so every block pair of the global
+matrix is covered.  The mesh is one flat axis; nothing assumes a topology.
 
 Balanced triangular schedule
 ----------------------------
@@ -16,7 +17,7 @@ orientation and emitted as ``(min(i, j), max(i, j))``.  Rotating panels
 *backwards* (device d receives from d+1) puts block ``(d + t) mod D`` on
 device d at step t, so the schedule
 
-    step 0:            every device × its own block   (diagonal, tri-skip)
+    step 0:            every device × its own block   (diagonal)
     steps 1..⌊(D-1)/2⌋: every device × block (d+t)    (distinct pairs, all
                        devices fully busy — no masking at all)
     step D/2 (D even): devices d and d+D/2 both hold pair {d, d+D/2} and
@@ -33,7 +34,7 @@ specification; ``_ring_fn`` mirrors it in traced form.
 
 The next rotation's ``ppermute`` is issued *before* the kernel consumes the
 current buffer (both only read it), so XLA's latency-hiding scheduler can
-overlap the ICI transfer with the MXU compute (SURVEY.md §7 hard part (e)).
+overlap the transfer with the count kernel (SURVEY.md §7 hard part (e)).
 
 Thresholded hits are compacted into fixed per-device buffers (the SPMD
 analogue of the reference's atomic result buffer, cuking.cu:296-313) with a
@@ -111,36 +112,12 @@ class RingOutput(NamedTuple):
         return self.i_idx.shape[0] // self.counts.shape[0]
 
 
-def _choose_sub_panel(nd: int, requested: int, row_multiple: int = 1) -> int:
-    """Largest sub-panel ≤ requested that divides the per-device row count
-    and respects the kernel's tile multiple; falls back to the whole block."""
+def _choose_sub_panel(nd: int, requested: int) -> int:
+    """Largest sub-panel ≤ requested that divides the per-device row count."""
     for p in range(min(requested, nd), 0, -1):
-        if nd % p == 0 and p % row_multiple == 0:
+        if nd % p == 0:
             return p
     return nd
-
-
-def _wrap_split(p: int, row_multiple: int) -> int:
-    """Row count of the lower device's share when the even-D wrap block is
-    a SINGLE sub-tile (ns == 1): ~p/2 rounded to a kernel-legal panel size.
-    0 = unsplittable (degenerate p; the whole block then goes to the higher
-    device — the pre-r3 behavior, see ring_schedule).
-
-    Legality model (matches panel_counts_pallas, the constrained kernel):
-    a panel of ``ni`` rows is legal when ni is a multiple of the tile
-    (``row_multiple``) — or, because the kernel clamps ``ti = min(tile,
-    ni)``, when ni ≤ tile and ni respects Mosaic's 8-sublane alignment.
-    Unconstrained kernels pass row_multiple=1."""
-    if p >= 2 * row_multiple:
-        return (p // (2 * row_multiple)) * row_multiple
-    if row_multiple == 1:
-        return p // 2 if p >= 2 else 0
-    # p < 2·row_multiple: equal tile-multiples can't split, but sub-tile
-    # panels (ti = ni ≤ tile) are legal at 8-sublane granularity.
-    half = (p // 2) // 8 * 8
-    if half >= 8 and half <= row_multiple and p - half <= row_multiple:
-        return half
-    return 0
 
 
 def _ring_fn(
@@ -153,8 +130,6 @@ def _ring_fn(
     capacity: int,
     sub_panel: int | None = None,
     row_offset: int = 0,
-    row_multiple: int = 1,
-    indexed_kernel: Callable | None = None,
 ):
     """Per-device SPMD body.  The nd×nd pair block of each ring step is
     processed in ``sub_panel``-sized sub-tiles (an inner lax.scan), so
@@ -194,10 +169,9 @@ def _ring_fn(
             & (gj[None, :] < row_limit)
             & (res.kin > threshold)
         )
-        # TPU scatters are expensive (p² updates into the device buffer);
-        # accumulate_hits cond-gates so only hit-bearing sub-tiles pay
-        # (measured 28× end-to-end on a v5e without the gate), and its
-        # position scheme keeps the unique_indices promise literal even
+        # A full-tile scatter is p² updates into the device buffer;
+        # accumulate_hits cond-gates so only hit-bearing sub-tiles pay, and
+        # its position scheme keeps the unique_indices promise literal even
         # when `running` has overflowed capacity (the auto-retry case).
         gi2 = jnp.broadcast_to(gi[:, None], mask.shape)
         gj2 = jnp.broadcast_to(gj[None, :], mask.shape)
@@ -209,21 +183,15 @@ def _ring_fn(
     def slice_rows(planes, k):
         return lax.dynamic_slice(planes, (0, k * p, 0), (2, p, words))
 
-    def sub_counts(src_j, ii, jj, tri):
-        """Counts for sub-tile (ii, jj) of (local_planes × src_j): through
-        the scalar-prefetch indexed kernel when available (no [2, p, W]
-        slice copies out of HBM — at gnomAD-scale W those cost more HBM
-        traffic per step than the panels themselves), else by slicing."""
-        if indexed_kernel is not None:
-            return indexed_kernel(
-                local_planes, ii * p, jj * p, tri, panel=p, planes_j=src_j
-            )
-        return kernel(slice_rows(local_planes, ii), slice_rows(src_j, jj), tri)
+    def sub_counts(src_j, ii, jj):
+        """Counts for sub-tile (ii, jj) of (local_planes × src_j)."""
+        return kernel(slice_rows(local_planes, ii), slice_rows(src_j, jj))
 
     out0 = empty_result_buffers(capacity)
 
     # The first rotation is issued BEFORE the local-triangle phase: the hop
-    # that delivers block (me+1) rides ICI while the diagonal compute runs.
+    # that delivers block (me+1) is in flight while the diagonal compute
+    # runs.
     buf0 = (
         lax.ppermute(local_planes, AXIS, perm=perm)
         if num_devices > 1
@@ -231,9 +199,8 @@ def _ring_fn(
     )
 
     # Phase 1 — the resident block's own triangle (ring_schedule step 0).
-    # The sub-pair list is STATIC and upper-triangular: unlike a traced-tri
-    # sweep, sub-tiles below the diagonal are never scheduled at all, and
-    # equal-index sub-tiles get the kernel's tri tile skip.
+    # The sub-pair list is STATIC and upper-triangular: sub-tiles below the
+    # diagonal are never scheduled at all.
     tri_pairs = jnp.asarray(
         [(ii, jj) for ii in range(ns) for jj in range(ii, ns)], jnp.int32
     ).reshape(-1, 2)
@@ -241,7 +208,7 @@ def _ring_fn(
     def tri_body(carry, pair):
         out, running = carry
         ii, jj = pair[0], pair[1]
-        counts = sub_counts(local_planes, ii, jj, (ii == jj).astype(jnp.int32))
+        counts = sub_counts(local_planes, ii, jj)
         out, running = emit(
             out, running, counts, gi0 + ii * p, gi0 + jj * p, ii == jj
         )
@@ -260,7 +227,7 @@ def _ring_fn(
         def sub_body(carry2, pair):
             out2, running2 = carry2
             ii, jj = pair[0], pair[1]
-            counts = sub_counts(buf, ii, jj, jnp.int32(0))
+            counts = sub_counts(buf, ii, jj)
             return emit(
                 out2, running2, counts,
                 gi0 + ii * p, row_offset + owner * nd + jj * p,
@@ -272,7 +239,7 @@ def _ring_fn(
     def body(carry, t):
         buf, out, running = carry
         # Issue the next rotation BEFORE consuming `buf`: the permute and the
-        # kernel both only read it, so the ICI transfer overlaps the compute.
+        # kernel both only read it, so the transfer overlaps the compute.
         nxt = lax.ppermute(buf, AXIS, perm=perm) if num_devices > 1 else buf
         owner = (me + t) % num_devices
         (out, running), _ = lax.scan(
@@ -292,44 +259,27 @@ def _ring_fn(
     # LAST ns-h sub-cols (= the canonical block's remaining rows).  Exact
     # partition for any h; h = ns//2 balances it (±1 sub-row when ns is
     # odd).  When the block is a SINGLE sub-tile (ns == 1) the split happens
-    # INSIDE it by rows instead (ADVICE r2: the spec's 0.5/0.5 promise must
-    # hold, not idle the lower device): the lower device computes resident
+    # INSIDE it by rows instead (the schedule's 0.5/0.5 promise must hold,
+    # not idle the lower device): the lower device computes resident
     # rows [0, p1) × the whole visitor, the higher device its whole resident
     # × visitor rows [p1, p) — in canonical (a, b) terms, a-rows [0, p1) and
     # [p1, p) respectively.  Only a degenerate unsplittable p keeps the old
     # whole-block-to-higher-device behavior.
     if num_devices % 2 == 0 and num_devices > 1:
         owner = (me + num_devices // 2) % num_devices
-        p1 = _wrap_split(p, row_multiple) if ns == 1 else 0
+        p1 = p // 2 if ns == 1 else 0
         if ns == 1 and p1:
             gj_owner = row_offset + owner * nd
 
             def low(carry):
-                if indexed_kernel is not None:
-                    counts = indexed_kernel(
-                        local_planes, 0, 0, jnp.int32(0),
-                        panel=p1, panel_j=p, planes_j=buf,
-                    )
-                else:
-                    counts = kernel(
-                        lax.slice_in_dim(local_planes, 0, p1, axis=1),
-                        buf,
-                        jnp.int32(0),
-                    )
+                counts = kernel(
+                    lax.slice_in_dim(local_planes, 0, p1, axis=1), buf
+                )
                 return emit(*carry, counts, gi0, gj_owner, jnp.bool_(False))
 
             def high(carry):
-                # Always sliced here: j_off = p1 would have to land on a
-                # j-tile boundary of the indexed kernel, whose tile is
-                # tj = min(tile_j, p - p1) — a quantum this layer cannot
-                # see (row_multiple tracks tile_i only), and a misaligned
-                # offset floor-divides to the WRONG visitor window
-                # (silently wrong kinship).  The wrap step is one of D
-                # ring steps, so the single slice copy is noise.
                 counts = kernel(
-                    local_planes,
-                    lax.slice_in_dim(buf, p1, p, axis=1),
-                    jnp.int32(0),
+                    local_planes, lax.slice_in_dim(buf, p1, p, axis=1)
                 )
                 return emit(
                     *carry, counts, gi0, gj_owner + p1, jnp.bool_(False)
@@ -379,7 +329,6 @@ def _rect_ring_fn(
     capacity: int,
     sub_panel_i: int | None,
     sub_panel_j: int | None,
-    indexed_kernel: Callable | None = None,
 ):
     """Per-device SPMD body for an OFF-DIAGONAL Submatrix shard: every pair
     (r, c) with r in the shard's row block and c in its column block
@@ -391,8 +340,8 @@ def _rect_ring_fn(
     steps every device has seen every j block: D · (nd_i × nd_j) pair tiles
     per device, identical on every device — trivially perfect balance, and
     each block pair computed exactly once.  The rotation for step t+1 is
-    issued before step t's compute consumes the buffer, overlapping ICI
-    with the MXU like the triangular ring."""
+    issued before step t's compute consumes the buffer, overlapping the
+    transfer with the compute like the triangular ring."""
     nd_i, nd_j = local_i.shape[1], local_j.shape[1]
     words = local_i.shape[2]
     p_i = sub_panel_i or nd_i
@@ -432,21 +381,10 @@ def _rect_ring_fn(
         def go(carry, pair):
             out2, running2 = carry
             ii, jj = pair[0], pair[1]
-            if indexed_kernel is not None:
-                counts = indexed_kernel(
-                    local_i, ii * p_i, jj * p_j, jnp.int32(0),
-                    panel=p_i, panel_j=p_j, planes_j=buf,
-                )
-            else:
-                counts = kernel(
-                    lax.dynamic_slice(
-                        local_i, (0, ii * p_i, 0), (2, p_i, words)
-                    ),
-                    lax.dynamic_slice(
-                        buf, (0, jj * p_j, 0), (2, p_j, words)
-                    ),
-                    jnp.int32(0),
-                )
+            counts = kernel(
+                lax.dynamic_slice(local_i, (0, ii * p_i, 0), (2, p_i, words)),
+                lax.dynamic_slice(buf, (0, jj * p_j, 0), (2, p_j, words)),
+            )
             return emit(
                 out2, running2, counts,
                 gi0 + ii * p_i, j_offset + owner * nd_j + jj * p_j,
@@ -473,18 +411,15 @@ def _rect_ring_fn(
     )
 
 
-def _pad_and_shard(
-    planes, count: int, mesh: Mesh, row_multiple: int
-) -> tuple[jnp.ndarray, int]:
+def _pad_and_shard(planes, count: int, mesh: Mesh) -> tuple[jnp.ndarray, int]:
     """Pads a [2, n, W] plane array with all-missing rows to an even
-    per-device multiple (respecting the kernel tile multiple) and places it
-    sharded along the sample axis.  Rows may already carry padding beyond
-    ``count`` (panel multiples), so the pad target is max(count, n).
+    per-device multiple and places it sharded along the sample axis.  Rows
+    may already carry padding beyond ``count`` (panel multiples), so the pad
+    target is max(count, n).
     Padding self-masks via the validity bound."""
     num_devices = mesh.devices.size
     n = planes.shape[1]
     nd = -(-max(count, n, 1) // num_devices)
-    nd = -(-nd // row_multiple) * row_multiple
     n_pad = nd * num_devices
     if n < n_pad:
         pad = np.full((2, n_pad - n, planes.shape[2]), 0xFFFFFFFF, np.uint32)
@@ -501,30 +436,26 @@ def all_pairs_sharded(
     *,
     kin_threshold: float,
     capacity_per_device: int = 1 << 20,
-    row_multiple: int = 1,
     max_results: int | None = None,
     auto_retry: bool = True,
     sub_panel: int | None = 1024,
     row_offset: int = 0,
-    indexed_kernel: Callable | None = None,
 ) -> RingOutput:
     """Runs the ring sweep over the mesh; returns per-device compacted hits.
 
     ``planes`` is padded (all-ones = missing) up to ``D * ceil(N/D)`` rows and
     placed sharded along the sample axis; padding self-masks via the
-    ``num_samples`` validity check.  ``row_multiple`` additionally rounds the
-    per-device row count up (e.g. to the Pallas tile size, which requires
-    tile-divisible panels).  ``sub_panel`` bounds per-step intermediates (see
-    ``_ring_fn``); the default 1024 keeps them ≤~25 MiB at any cohort size
+    ``num_samples`` validity check.  ``sub_panel`` bounds per-step
+    intermediates (see ``_ring_fn``); the default 1024 keeps them ≤~25 MiB at
+    any cohort size
     (``None`` = whole block, test/debug only).
     """
-    planes_sharded, _ = _pad_and_shard(planes, num_samples, mesh, row_multiple)
+    planes_sharded, _ = _pad_and_shard(planes, num_samples, mesh)
     return all_pairs_presharded(
         planes_sharded, num_samples, mesh, kernel,
         kin_threshold=kin_threshold, capacity_per_device=capacity_per_device,
         max_results=max_results, auto_retry=auto_retry,
-        sub_panel=sub_panel, row_multiple=row_multiple,
-        row_offset=row_offset, indexed_kernel=indexed_kernel,
+        sub_panel=sub_panel, row_offset=row_offset,
     )
 
 
@@ -539,9 +470,7 @@ def all_pairs_presharded(
     max_results: int | None = None,
     auto_retry: bool = True,
     sub_panel: int | None = 1024,
-    row_multiple: int = 1,
     row_offset: int = 0,
-    indexed_kernel: Callable | None = None,
 ) -> RingOutput:
     """Ring sweep over an ALREADY sample-sharded global plane array.
 
@@ -559,12 +488,11 @@ def all_pairs_presharded(
     """
     num_devices = mesh.devices.size
     nd = planes_sharded.shape[1] // num_devices
-    p = _choose_sub_panel(nd, sub_panel, row_multiple) if sub_panel else None
+    p = _choose_sub_panel(nd, sub_panel) if sub_panel else None
 
     def run(capacity: int) -> RingOutput:
         fn = _compiled_ring(
             kernel, mesh, num_devices, num_samples, capacity, p, row_offset,
-            row_multiple, indexed_kernel,
         )
         return fn(planes_sharded, jnp.float32(kin_threshold))
 
@@ -586,7 +514,7 @@ def _run_with_retry(
     clean ResourceExhaustedError for a device OOM).  The retry capacity is
     bucketed to the next power of two (≤ the global limit): `capacity` is
     a compile-cache key, and retrying at the exact overflow count would
-    retrace + recompile for every distinct skew (~2 min cold on a TPU)."""
+    retrace + recompile for every distinct skew."""
     out = run(capacity_per_device)
     if auto_retry:
         counts = ring_global_counts(out)
@@ -610,11 +538,9 @@ def rect_pairs_sharded(
     j_offset: int,
     kin_threshold: float,
     capacity_per_device: int = 1 << 20,
-    row_multiple: int = 1,
     max_results: int | None = None,
     auto_retry: bool = True,
     sub_panel: int | None = 1024,
-    indexed_kernel: Callable | None = None,
 ) -> RingOutput:
     """Ring sweep of an OFF-DIAGONAL Submatrix shard over the mesh: all
     pairs (r, c), r in the i-range, c in the j-range (disjoint global
@@ -622,15 +548,14 @@ def rect_pairs_sharded(
     axis; j-blocks rotate around the ring.  Composes --split_factor with
     --use_mesh: each device holds 2/k'th of a split-k cohort's panel
     instead of the whole cohort's share — the reference's memory-relief
-    axis (README.md:94-102) applied to the pod-slice path."""
-    pi_sharded, _ = _pad_and_shard(planes_i, i_count, mesh, row_multiple)
-    pj_sharded, _ = _pad_and_shard(planes_j, j_count, mesh, row_multiple)
+    axis (README.md:94-102) applied to the mesh path."""
+    pi_sharded, _ = _pad_and_shard(planes_i, i_count, mesh)
+    pj_sharded, _ = _pad_and_shard(planes_j, j_count, mesh)
     return rect_pairs_presharded(
         pi_sharded, pj_sharded, i_count, j_count, mesh, kernel,
         i_offset=i_offset, j_offset=j_offset, kin_threshold=kin_threshold,
-        capacity_per_device=capacity_per_device, row_multiple=row_multiple,
-        max_results=max_results, auto_retry=auto_retry, sub_panel=sub_panel,
-        indexed_kernel=indexed_kernel,
+        capacity_per_device=capacity_per_device, max_results=max_results,
+        auto_retry=auto_retry, sub_panel=sub_panel,
     )
 
 
@@ -646,11 +571,9 @@ def rect_pairs_presharded(
     j_offset: int,
     kin_threshold: float,
     capacity_per_device: int = 1 << 20,
-    row_multiple: int = 1,
     max_results: int | None = None,
     auto_retry: bool = True,
     sub_panel: int | None = 1024,
-    indexed_kernel: Callable | None = None,
 ) -> RingOutput:
     """Rectangular ring over ALREADY-sharded i/j plane arrays — the
     multi-host entry point (each host materializes only its devices' blocks
@@ -658,13 +581,13 @@ def rect_pairs_presharded(
     num_devices = mesh.devices.size
     nd_i = pi_sharded.shape[1] // num_devices
     nd_j = pj_sharded.shape[1] // num_devices
-    p_i = _choose_sub_panel(nd_i, sub_panel, row_multiple) if sub_panel else None
-    p_j = _choose_sub_panel(nd_j, sub_panel, row_multiple) if sub_panel else None
+    p_i = _choose_sub_panel(nd_i, sub_panel) if sub_panel else None
+    p_j = _choose_sub_panel(nd_j, sub_panel) if sub_panel else None
 
     def run(capacity: int) -> RingOutput:
         fn = _compiled_rect_ring(
             kernel, mesh, num_devices, i_offset, i_count, j_offset, j_count,
-            capacity, p_i, p_j, indexed_kernel,
+            capacity, p_i, p_j,
         )
         return fn(pi_sharded, pj_sharded, jnp.float32(kin_threshold))
 
@@ -678,11 +601,9 @@ def submatrix_pairs_sharded(
     *,
     kin_threshold: float,
     capacity_per_device: int = 1 << 20,
-    row_multiple: int = 1,
     max_results: int | None = None,
     auto_retry: bool = True,
     sub_panel: int | None = 1024,
-    indexed_kernel: Callable | None = None,
 ) -> RingOutput:
     """Sweeps ONE Submatrix shard (any split_factor) over the mesh ring:
     a diagonal shard is the balanced triangular ring over its block with a
@@ -698,12 +619,10 @@ def submatrix_pairs_sharded(
             kernel,
             kin_threshold=kin_threshold,
             capacity_per_device=capacity_per_device,
-            row_multiple=row_multiple,
             max_results=max_results,
             auto_retry=auto_retry,
             sub_panel=sub_panel,
             row_offset=sm.i_begin,
-            indexed_kernel=indexed_kernel,
         )
     return rect_pairs_sharded(
         storage.planes[:, : storage.j_store_base],
@@ -716,11 +635,9 @@ def submatrix_pairs_sharded(
         j_offset=sm.j_begin,
         kin_threshold=kin_threshold,
         capacity_per_device=capacity_per_device,
-        row_multiple=row_multiple,
         max_results=max_results,
         auto_retry=auto_retry,
         sub_panel=sub_panel,
-        indexed_kernel=indexed_kernel,
     )
 
 
@@ -736,7 +653,6 @@ _RING_OUT_SPECS = RingOutput(
 @lru_cache(maxsize=32)
 def _compiled_ring(
     kernel, mesh, num_devices, num_samples, capacity, sub_panel, row_offset,
-    row_multiple, indexed_kernel=None,
 ):
     """Jitted shard_map sweep, cached so repeated invocations (retries, CLI
     re-runs, benchmarks) skip re-tracing the whole sub-tiled scan — tracing a
@@ -752,8 +668,6 @@ def _compiled_ring(
             capacity=capacity,
             sub_panel=sub_panel,
             row_offset=row_offset,
-            row_multiple=row_multiple,
-            indexed_kernel=indexed_kernel,
         ),
         mesh=mesh,
         in_specs=(P(None, AXIS, None), P()),
@@ -766,7 +680,7 @@ def _compiled_ring(
 @lru_cache(maxsize=32)
 def _compiled_rect_ring(
     kernel, mesh, num_devices, i_offset, i_count, j_offset, j_count,
-    capacity, sub_panel_i, sub_panel_j, indexed_kernel=None,
+    capacity, sub_panel_i, sub_panel_j,
 ):
     fn = jax.shard_map(
         partial(
@@ -780,7 +694,6 @@ def _compiled_rect_ring(
             capacity=capacity,
             sub_panel_i=sub_panel_i,
             sub_panel_j=sub_panel_j,
-            indexed_kernel=indexed_kernel,
         ),
         mesh=mesh,
         in_specs=(P(None, AXIS, None), P(None, AXIS, None), P()),
@@ -830,7 +743,7 @@ def ring_output_local_resultset(
 
     Each host materializes just its addressable shards and writes them as its
     own output partition — preserving the reference's share-nothing,
-    trivially-mergeable output property (README.md:102) across a pod slice.
+    trivially-mergeable output property (README.md:102) across hosts.
     Overflow and the global ``max_results`` bound are checked against the
     all-gathered counts, so every host raises in unison (fail-fast like
     cuking.cu:747-751)."""

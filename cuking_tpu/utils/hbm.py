@@ -2,17 +2,17 @@
 
 The reference sizes its allocations against a known 40 GB A100 envelope and
 prescribes ``--split_factor`` as the memory-relief mechanism
-(cuking.cu:513-517; README.md:96-98).  The TPU engine's equivalent: compute
+(cuking.cu:513-517; README.md:96-98).  This engine's equivalent: compute
 the device-resident footprint of a shard's sweep UP FRONT — bit planes plus
 the bounded in-flight result buffers — compare it against the chip's HBM
 limit, and when it doesn't fit, raise InvalidArgument naming the **minimal
 split factor that does** instead of letting the whole-shard
 ``jnp.asarray`` upload die inside XLA.
 
-The limit is queried from ``device.memory_stats()['bytes_limit']`` (real TPU
-chips report it; CPU test devices don't — the check is skipped when the
-platform can't say).  ``CUKING_HBM_BYTES_LIMIT`` overrides the query for
-tests and for operators who want headroom for a colocated process.
+The limit is queried from ``device.memory_stats()['bytes_limit']`` (GPUs
+report it; CPU test devices don't — the check is skipped when the platform
+can't say).  ``CUKING_HBM_BYTES_LIMIT`` overrides the query for tests and
+for operators who want headroom for a colocated process.
 """
 
 from __future__ import annotations
@@ -21,9 +21,15 @@ import os
 
 from cuking_tpu.utils.status import InvalidArgumentError
 
-# Fraction of the reported HBM actually usable by one process: XLA reserves
-# program/runtime scratch, and the sweep needs transient epilogue buffers
-# beyond what the static model counts.
+# Fraction of the reported limit usable by the sweep's own arrays: XLA
+# reserves program scratch, and the sweep needs transient epilogue buffers
+# beyond what the static model counts.  On a GPU, ``bytes_limit`` is the
+# pool the JAX client reserved at start-up (by default 75% of the card's
+# memory, XLA_PYTHON_CLIENT_MEM_FRACTION), not the card's total, so this
+# fraction applies to the reserved pool and leaves the other quarter of the
+# card to the CUDA context, cuBLAS workspaces and other processes.  On an
+# H100 the model's figure for a 32,768 × 100k sweep was above its measured
+# ``peak_bytes_in_use`` (PERF.md), so the fraction still leaves headroom.
 _USABLE_FRACTION = 0.92
 
 
@@ -153,16 +159,13 @@ def check_engine_fit(
     )
 
 
-def ring_rows_per_device(
-    rows: int, panel: int, row_multiple: int, num_devices: int
-) -> int:
+def ring_rows_per_device(rows: int, panel: int, num_devices: int) -> int:
     """Per-device row count the ring will actually use for a range of
     ``rows`` samples: panel-padded storage rows (PanelStorage layout) split
-    over the mesh, rounded to the kernel's tile multiple — mirroring
-    all_pairs_sharded/rect_pairs_sharded padding exactly."""
+    over the mesh — mirroring all_pairs_sharded/rect_pairs_sharded padding
+    exactly."""
     padded = _ceil_to(max(rows, 1), panel)
-    nd = -(-padded // num_devices)
-    return _ceil_to(nd, row_multiple)
+    return -(-padded // num_devices)
 
 
 def _ring_hits_bytes(capacity_per_device: int, max_results: int | None) -> int:
@@ -184,7 +187,6 @@ def ring_shard_bytes(
     is_diagonal: bool,
     words: int,
     panel: int,
-    row_multiple: int,
     num_devices: int,
     capacity_per_device: int,
     max_results: int | None = None,
@@ -195,17 +197,17 @@ def ring_shard_bytes(
     rotating j-panels; both add the six hit buffers at their worst
     (post-retry) capacity."""
     hits_b = _ring_hits_bytes(capacity_per_device, max_results)
-    nd_i = ring_rows_per_device(num_rows, panel, row_multiple, num_devices)
+    nd_i = ring_rows_per_device(num_rows, panel, num_devices)
     panel_i = 2 * nd_i * words * 4
     if is_diagonal:
         return 3 * panel_i + hits_b
-    nd_j = ring_rows_per_device(num_cols, panel, row_multiple, num_devices)
+    nd_j = ring_rows_per_device(num_cols, panel, num_devices)
     return panel_i + 2 * (2 * nd_j * words * 4) + hits_b
 
 
 def _worst_ring_shard_bytes(
     num_samples: int, split_factor: int, words: int, panel: int,
-    row_multiple: int, num_devices: int, capacity_per_device: int,
+    num_devices: int, capacity_per_device: int,
     max_results: int | None = None,
 ) -> int:
     """Worst shard at a given split factor: for k ≥ 2 an off-diagonal shard
@@ -213,7 +215,7 @@ def _worst_ring_shard_bytes(
     diagonal shard."""
     block = -(-num_samples // split_factor)
     return ring_shard_bytes(
-        block, block, split_factor == 1, words, panel, row_multiple,
+        block, block, split_factor == 1, words, panel,
         num_devices, capacity_per_device, max_results,
     )
 
@@ -228,7 +230,6 @@ def check_ring_fit(
     *,
     submatrix=None,
     panel: int = 1,
-    row_multiple: int = 1,
     split_factor: int = 1,
     max_results: int | None = None,
 ) -> None:
@@ -251,8 +252,7 @@ def check_ring_fit(
     if submatrix is not None:
         need = ring_shard_bytes(
             submatrix.num_rows, submatrix.num_cols, submatrix.is_diagonal,
-            words, panel, row_multiple, num_devices, capacity_per_device,
-            max_results,
+            words, panel, num_devices, capacity_per_device, max_results,
         )
     else:
         need = 3 * (2 * rows_per_device * words * 4) + hits_b
@@ -261,7 +261,7 @@ def check_ring_fit(
 
     def worst(k: int) -> int:
         return _worst_ring_shard_bytes(
-            num_samples, k, words, panel, row_multiple, num_devices,
+            num_samples, k, words, panel, num_devices,
             capacity_per_device, max_results,
         )
 
@@ -274,8 +274,8 @@ def check_ring_fit(
             f"for this shard's ring sweep but only {limit >> 20} MiB is "
             f"available, and no --split_factor can relieve it: the "
             f"{hits_b >> 20} MiB worst-case hit buffers alone don't fit. "
-            "Lower --max_results/--capacity_per_device, or run on a larger "
-            "slice."
+            "Lower --max_results/--capacity_per_device, or run on more "
+            "devices."
         )
     if worst(split_factor) <= limit:
         # The caller's `need` (e.g. a library-supplied rows_per_device with
@@ -286,7 +286,7 @@ def check_ring_fit(
             f"Each of the {num_devices} mesh devices needs {need >> 20} MiB "
             f"for this ring sweep (incl. {hits_b >> 20} MiB worst-case hit "
             f"buffers) but only {limit >> 20} MiB is available; reduce the "
-            "per-device row count or run on a larger slice."
+            "per-device row count or run on more devices."
         )
     # worst(k) is non-increasing in k: binary-search the minimal fitting k.
     lo, hi = split_factor, num_samples  # worst(lo) > limit, worst(hi) <= limit
@@ -301,5 +301,5 @@ def check_ring_fit(
         f"for this shard's ring sweep (incl. {hits_b >> 20} MiB worst-case "
         f"hit buffers) but only {limit >> 20} MiB is available; increase "
         f"--split_factor to at least {hi} (it composes with --use_mesh), "
-        "or run on a larger slice."
+        "or run on more devices."
     )

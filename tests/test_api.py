@@ -36,16 +36,13 @@ def test_king_symmetry_and_duplicates():
 
 
 def test_king_custom_kernel_autopads():
-    """An explicit kernel (e.g. Pallas, which needs tile-divisible panels)
-    gets a padded sample axis; results are sliced back to N×N."""
-    from cuking_tpu.ops.king_pallas import panel_counts_pallas
+    """An explicit kernel is called on the packed planes as given; results
+    are exact N×N (here the popcount kernel at a non-power-of-two N)."""
+    from cuking_tpu.ops.king_jnp import panel_counts_popcount
 
     g = random_genotypes(37, 600, missing_rate=0.1, seed=13, num_related_pairs=2)
     res = cuking_tpu.king(
-        g,
-        kernel=lambda pi, pj: panel_counts_pallas(
-            pi, pj, site_chunk_words=8, tile_i=128, tile_j=128, interpret=True
-        ),
+        g, kernel=lambda pi, pj: panel_counts_popcount(pi, pj, row_block=1),
     )
     exp = king_from_counts(oracle_counts(g, g))
     assert np.asarray(res.kin).shape == (37, 37)

@@ -40,12 +40,42 @@ def test_render_batch_job_task_count_and_command():
     assert group["taskSpec"]["maxRunDuration"] == "36000s"
     assert job["logsPolicy"]["destination"] == "CLOUD_LOGGING"
     policy = job["allocationPolicy"]["instances"][0]["policy"]
-    assert policy["machineType"] == "ct5lp-hightpu-1t"
+    assert policy["machineType"] == "a3-highgpu-1g"
+    assert policy["accelerators"] == [{"type": "nvidia-h100-80gb", "count": 1}]
+    assert job["allocationPolicy"]["instances"][0]["installGpuDrivers"] is True
+
+
+def test_batch_cli_machine_and_accelerator_arguments():
+    """--machine-type/--accelerator-type/--accelerator-count reach the
+    rendered allocation policy (e.g. a four-H100 VM per shard for
+    --use_mesh), and Batch is asked to install the GPU driver."""
+    import io
+    from contextlib import redirect_stdout
+
+    from cuking_tpu.cloud.batch_submit import main as submit_main
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = submit_main([
+            "--input-uri", "gs://b/in", "--output-uri", "gs://b/out",
+            "--kin-threshold", "0.1", "--split-factor", "2",
+            "--docker-image", "img", "--machine-type", "a3-highgpu-4g",
+            "--accelerator-type", "nvidia-h100-80gb",
+            "--accelerator-count", "4", "--cuking-arg=--use_mesh",
+            "--render-only",
+        ])
+    assert rc == 0
+    instance = json.loads(buf.getvalue())["allocationPolicy"]["instances"][0]
+    assert instance["installGpuDrivers"] is True
+    assert instance["policy"] == {
+        "machineType": "a3-highgpu-4g",
+        "accelerators": [{"type": "nvidia-h100-80gb", "count": 4}],
+    }
 
 
 def test_render_batch_job_extra_cli_args_passthrough():
     """--cuking-arg flags reach every task's command verbatim (e.g.
-    --use_mesh to sweep each shard over a multi-chip task VM — the
+    --use_mesh to sweep each shard over a multi-GPU task VM — the
     --split_factor x --use_mesh composition applied to the fan-out)."""
     from cuking_tpu.cloud.batch_submit import main as submit_main
 

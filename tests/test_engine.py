@@ -197,8 +197,8 @@ def test_engine_capacity_overflow_retries_at_pow2_bucket():
 
 def test_engine_single_result_fetch():
     """The whole sweep's results come back in ONE stacked device→host
-    transfer (per-batch fetches through a ~25 ms TPU-runtime round trip
-    were the r2 hitful-throughput penalty)."""
+    transfer (a host round trip per batch was the r2 hitful-throughput
+    penalty)."""
     import cuking_tpu.models.king as king_mod
 
     g = random_genotypes(96, 400, missing_rate=0.0, seed=33,
@@ -217,71 +217,49 @@ def test_engine_single_result_fetch():
     assert_resultsets_equal(got, oracle_resultset(g, 0.0884))
 
 
-def test_engine_pallas_indexed_matches_sliced_and_matmul():
-    """The engine's Pallas paths (sliced and scalar-prefetch indexed,
-    interpret mode so they run on CPU) must produce the matmul engine's
-    results bit-exactly — covers the indexed wiring inside the batched
-    scan (traced offsets -> scalar prefetch; tri flag per step)."""
+def test_engine_popcount_matches_matmul():
+    """The engine's two count kernels (popcount baseline and the int8
+    matmul fast path) produce bit-identical results through the batched
+    sweep, including multi-panel scans and padding rows."""
     g = random_genotypes(48, 700, missing_rate=0.08, seed=11,
                          num_related_pairs=3)
     results = {}
-    for name, extra in [
-        ("matmul", dict(kernel="matmul")),
-        ("pallas_sliced", dict(kernel="pallas", pallas_interpret=True,
-                               indexed_panels=False)),
-        ("pallas_indexed", dict(kernel="pallas", pallas_interpret=True,
-                                indexed_panels=True)),
-    ]:
+    for name in ("matmul", "popcount"):
         cfg = KingConfig(panel=16, site_chunk_words=8, kin_threshold=-2.0,
-                         max_results=48 * 48, sweep_batch=4, **extra)
+                         max_results=48 * 48, sweep_batch=4, kernel=name)
         results[name] = KingEngine.from_genotypes(g, cfg).run()
-    base = results["matmul"]
+    base, rs = results["matmul"], results["popcount"]
     assert len(base) == 48 * 47 // 2 - _nonfinite_pairs(g)
-    for name in ("pallas_sliced", "pallas_indexed"):
-        rs = results[name]
-        assert len(rs) == len(base), name
-        assert np.array_equal(rs.i_idx, base.i_idx), name
-        assert np.array_equal(rs.j_idx, base.j_idx), name
-        assert np.array_equal(rs.kin.view(np.uint32),
-                              base.kin.view(np.uint32)), name
-        for f in ("ibs0", "ibs1", "ibs2"):
-            assert np.array_equal(getattr(rs, f), getattr(base, f)), (name, f)
+    assert len(rs) == len(base)
+    assert np.array_equal(rs.kin.view(np.uint32), base.kin.view(np.uint32))
+    for f in ("i_idx", "j_idx", "ibs0", "ibs1", "ibs2"):
+        assert np.array_equal(getattr(rs, f), getattr(base, f)), f
 
 
-def test_engine_tile_knobs_match_default_tiles():
-    """KingConfig.tile_i/tile_j (round 5: the on-TPU 512-tile opt-in knob)
-    must plumb into both Pallas entry points and change nothing: results
-    bit-exact vs the default tiles across sliced and indexed paths, and a
-    tile that doesn't divide the panel fails loudly (king_pallas.py
-    asserts panel % ti == 0)."""
-    g = random_genotypes(40, 500, missing_rate=0.1, seed=17,
-                         num_related_pairs=2)
-    base_kw = dict(panel=16, site_chunk_words=8, kin_threshold=-2.0,
-                   max_results=40 * 40, sweep_batch=4, kernel="pallas",
-                   pallas_interpret=True)
-    results = {}
-    for name, extra in [
-        ("default", {}),
-        ("t8x4_sliced", dict(tile_i=8, tile_j=4, indexed_panels=False)),
-        ("t8x4_indexed", dict(tile_i=8, tile_j=4, indexed_panels=True)),
-    ]:
-        cfg = KingConfig(**base_kw, **extra)
-        results[name] = KingEngine.from_genotypes(g, cfg).run()
-    base = results["default"]
-    assert len(base) == 40 * 39 // 2 - _nonfinite_pairs(g)
-    for name in ("t8x4_sliced", "t8x4_indexed"):
-        rs = results[name]
-        assert len(rs) == len(base), name
-        assert np.array_equal(rs.kin.view(np.uint32),
-                              base.kin.view(np.uint32)), name
-        for f in ("i_idx", "j_idx", "ibs0", "ibs1", "ibs2"):
-            assert np.array_equal(getattr(rs, f), getattr(base, f)), (name, f)
-    # A tile that doesn't divide the panel must fail loudly, not floor-divide
-    # offsets to the wrong row window (16 % min(12, 16) != 0).
-    with pytest.raises(AssertionError):
-        KingEngine.from_genotypes(
-            g, KingConfig(**base_kw, tile_i=12, indexed_panels=False)
-        ).run()
+@pytest.mark.parametrize("platform,kernel,expected", [
+    ("gpu", "auto", "matmul"),
+    ("cpu", "auto", "matmul"),
+    ("gpu", "popcount", "popcount"),
+    ("metal", "matmul", "matmul"),
+])
+def test_resolve_kernel_name_per_platform(monkeypatch, platform, kernel,
+                                          expected):
+    """'auto' picks the platform's fast path; an explicit name is kept."""
+    from cuking_tpu.models import king as king_mod
+
+    monkeypatch.setattr(king_mod.jax, "default_backend", lambda: platform)
+    assert king_mod.resolve_kernel_name(KingConfig(kernel=kernel)) == expected
+
+
+def test_resolve_kernel_name_rejects_unknown_platform(monkeypatch):
+    """No silent fallback: 'auto' on a platform without a kernel of its own
+    is an error naming the platform."""
+    from cuking_tpu.models import king as king_mod
+    from cuking_tpu.utils.status import InvalidArgumentError
+
+    monkeypatch.setattr(king_mod.jax, "default_backend", lambda: "metal")
+    with pytest.raises(InvalidArgumentError, match="'metal'"):
+        king_mod.resolve_kernel_name(KingConfig())
 
 
 def _nonfinite_pairs(g):
@@ -296,48 +274,22 @@ def _nonfinite_pairs(g):
 
 
 def test_engine_split_w_layout_matches_matmul():
-    """A words_multiple=64 layout (W=192: >128 and not a 128-multiple)
-    drives the kernel's site-axis split — the 128-aligned prefix plus the
-    full-axis remainder call — through the full engine sweep.  The sliced
-    path splits in-kernel; the indexed path keeps TWO resident arrays
-    (prefix + remainder) and adds the two scalar-prefetch calls' counters
-    (models/king.py).  Both must match the matmul engine bit-exactly on
-    the same layout."""
+    """A words_multiple=64 layout (W=192, not a multiple of the requested
+    128-word site chunk) makes the matmul kernel clamp its chunk to a
+    divisor of W (96) inside the engine's sweep; results must equal the
+    popcount engine's, which has no site chunks, bit for bit."""
     g = random_genotypes(40, 6100, missing_rate=0.08, seed=13,
                          num_related_pairs=3)
     results = {}
-    for name, extra in [
-        ("matmul", dict(kernel="matmul")),
-        ("pallas_sliced", dict(kernel="pallas", pallas_interpret=True,
-                               indexed_panels=False)),
-        ("pallas_indexed", dict(kernel="pallas", pallas_interpret=True,
-                                indexed_panels=True)),
-    ]:
+    for name in ("matmul", "popcount"):
         cfg = KingConfig(panel=16, site_chunk_words=128, kin_threshold=-2.0,
-                         max_results=40 * 40, sweep_batch=4, **extra)
+                         max_results=40 * 40, sweep_batch=4, kernel=name)
         eng = KingEngine.from_genotypes(g, cfg, words_multiple=64)
-        assert eng.storage.layout.words == 192  # the split-needing shape
-        if name == "pallas_indexed":
-            # The indexed × split-W composition must engage: two resident
-            # arrays, [.., 128] prefix + [.., 64] full-axis remainder —
-            # while planes_dev keeps its single-array contract.
-            assert eng._w_split == (128, 64)
-            dev = eng._sweep_planes()
-            assert isinstance(dev, tuple)
-            assert dev[0].shape[2] == 128 and dev[1].shape[2] == 64
-            assert not isinstance(eng.planes_dev, tuple)
-        else:
-            assert eng._w_split is None
-            assert eng._sweep_planes() is eng.planes_dev
+        assert eng.storage.layout.words == 192
         results[name] = eng.run()
-    base = results["matmul"]
+    base, rs = results["popcount"], results["matmul"]
     assert len(base) == 40 * 39 // 2 - _nonfinite_pairs(g)
-    for name in ("pallas_sliced", "pallas_indexed"):
-        rs = results[name]
-        assert len(rs) == len(base), name
-        assert np.array_equal(rs.i_idx, base.i_idx), name
-        assert np.array_equal(rs.j_idx, base.j_idx), name
-        assert np.array_equal(rs.kin.view(np.uint32),
-                              base.kin.view(np.uint32)), name
-        for f in ("ibs0", "ibs1", "ibs2"):
-            assert np.array_equal(getattr(rs, f), getattr(base, f)), (name, f)
+    assert len(rs) == len(base)
+    assert np.array_equal(rs.kin.view(np.uint32), base.kin.view(np.uint32))
+    for f in ("i_idx", "j_idx", "ibs0", "ibs1", "ibs2"):
+        assert np.array_equal(getattr(rs, f), getattr(base, f)), f

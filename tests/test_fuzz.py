@@ -112,8 +112,8 @@ def test_ring_fuzz_vs_oracle(n, s, missing, threshold, num_devices,
     mesh = Mesh(np.array(jax.devices()[:num_devices]), axis_names=("samples",))
     out = all_pairs_sharded(
         planes, n, mesh,
-        lambda pi, pj, tri=None: panel_counts_matmul(
-            pi, pj, tri, site_chunk_words=16
+        lambda pi, pj: panel_counts_matmul(
+            pi, pj, site_chunk_words=16
         ),
         kin_threshold=threshold, capacity_per_device=8192,
         sub_panel=sub_panel,

@@ -81,7 +81,7 @@ def test_device_bytes_limit_env_override(monkeypatch):
 
 def test_check_ring_fit():
     check_ring_fit(1000, 64, 128, 4096, 8, bytes_limit=1 << 30)
-    with pytest.raises(InvalidArgumentError, match="larger slice"):
+    with pytest.raises(InvalidArgumentError, match="more devices"):
         check_ring_fit(1_000_000, 1 << 15, 1 << 17, 4096, 8, bytes_limit=1 << 30)
 
 
@@ -97,7 +97,7 @@ def test_check_ring_fit_names_minimal_split_factor():
     with pytest.raises(InvalidArgumentError) as e:
         check_ring_fit(
             n, words, 0, cap, n_dev, bytes_limit=1 << 30,
-            submatrix=sm, panel=1024, row_multiple=256, split_factor=1,
+            submatrix=sm, panel=1024, split_factor=1,
         )
     msg = str(e.value)
     assert "--split_factor to at least" in msg
@@ -105,13 +105,13 @@ def test_check_ring_fit_names_minimal_split_factor():
     assert k > 1
     # The suggestion must actually fit, and k-1 must not.
     assert _worst_ring_shard_bytes(
-        n, k, words, 1024, 256, n_dev, cap) <= 1 << 30
+        n, k, words, 1024, n_dev, cap) <= 1 << 30
     assert _worst_ring_shard_bytes(
-        n, k - 1, words, 1024, 256, n_dev, cap) > 1 << 30
+        n, k - 1, words, 1024, n_dev, cap) > 1 << 30
     # And a shard of a sufficiently split run passes.
     check_ring_fit(
         n, words, 0, cap, n_dev, bytes_limit=1 << 30,
-        submatrix=Submatrix.create(n, k, 1), panel=1024, row_multiple=256,
+        submatrix=Submatrix.create(n, k, 1), panel=1024,
         split_factor=k,
     )
 
@@ -128,13 +128,13 @@ def test_check_ring_fit_budgets_retry_capacity_and_no_fit_message():
     with pytest.raises(InvalidArgumentError, match="hit buffers alone"):
         check_ring_fit(
             1000, 64, 0, 4096, 8, bytes_limit=8 << 20,
-            submatrix=sm, panel=16, row_multiple=1, split_factor=1,
+            submatrix=sm, panel=16, split_factor=1,
             max_results=1 << 20,  # 24 MiB worst-case > 8 MiB limit
         )
     # Same config without the retry ceiling passes (planes are tiny).
     check_ring_fit(
         1000, 64, 0, 4096, 8, bytes_limit=8 << 20,
-        submatrix=sm, panel=16, row_multiple=1, split_factor=1,
+        submatrix=sm, panel=16, split_factor=1,
         max_results=4096,
     )
 

@@ -410,28 +410,3 @@ def test_baseline_parity_tool_small(tmp_path):
         "--panel", "16",
     ])
     assert rc == 0
-
-
-def test_cli_indexed_panels_flag_reaches_config(tmp_path, monkeypatch):
-    """--indexed_panels/--no-indexed_panels must override
-    KingConfig.indexed_panels; omitting the flag keeps the tuned default."""
-    from cuking_tpu.models.king import KingConfig
-
-    g = random_genotypes(12, 64, missing_rate=0.0, seed=9)
-    make_input(tmp_path, g, num_partitions=1)
-    seen = []
-    orig = KingConfig.__init__
-
-    def spy(self, *a, **kw):
-        orig(self, *a, **kw)
-        seen.append(self.indexed_panels)
-
-    monkeypatch.setattr(KingConfig, "__init__", spy)
-    for extra, expect in (
-        (["--indexed_panels"], True),
-        (["--no-indexed_panels"], False),
-        ([], KingConfig.indexed_panels),
-    ):
-        seen.clear()
-        assert run_cli(cli_common(tmp_path, extra)) == 0
-        assert seen and seen[0] is expect, (extra, seen)

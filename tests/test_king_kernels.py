@@ -1,5 +1,6 @@
-"""Count-kernel parity: jnp popcount and MXU matmul paths vs the numpy oracle,
-and the fp32 kin/IBS epilogue vs the reference expression (cuking.cu:286-307)."""
+"""Count-kernel parity: jnp popcount and int8 matmul paths vs the numpy
+oracle, and the fp32 kin/IBS epilogue vs the reference expression
+(cuking.cu:286-307)."""
 
 import numpy as np
 import pytest
@@ -13,28 +14,14 @@ from cuking_tpu.ops.king_mm import panel_counts_matmul
 from cuking_tpu.ops.oracle import oracle_counts, oracle_king
 from cuking_tpu.utils.synthetic import random_genotypes
 
-from cuking_tpu.ops.king_pallas import panel_counts_pallas
-
 KERNELS = {
     "popcount": lambda pi, pj: panel_counts_popcount(jnp.asarray(pi), jnp.asarray(pj)),
     "matmul": lambda pi, pj: panel_counts_matmul(
         jnp.asarray(pi), jnp.asarray(pj), site_chunk_words=16
     ),
-    # Interpret mode: validates the kernel logic on CPU; the real-TPU path is
-    # exercised by tools/tpu_smoke.py and bench.py.
-    "pallas": lambda pi, pj: panel_counts_pallas(
-        jnp.asarray(pi), jnp.asarray(pj), site_chunk_words=8, tile_i=8,
-        tile_j=8, interpret=True
-    ),
-    # u8/u16-bitcast unpack variants: different (but consistent) site
-    # permutation, identical counts.
-    "pallas_u8": lambda pi, pj: panel_counts_pallas(
-        jnp.asarray(pi), jnp.asarray(pj), site_chunk_words=8, tile_i=8,
-        tile_j=8, interpret=True, unpack="u8"
-    ),
-    "pallas_u16": lambda pi, pj: panel_counts_pallas(
-        jnp.asarray(pi), jnp.asarray(pj), site_chunk_words=8, tile_i=8,
-        tile_j=8, interpret=True, unpack="u16"
+    # A chunk smaller than every W below: many accumulated site chunks.
+    "matmul_chunk8": lambda pi, pj: panel_counts_matmul(
+        jnp.asarray(pi), jnp.asarray(pj), site_chunk_words=8
     ),
 }
 
@@ -91,34 +78,8 @@ def test_chunk_not_dividing_words_is_clamped():
         got_mm = panel_counts_matmul(
             jnp.asarray(planes), jnp.asarray(planes), site_chunk_words=chunk
         )
-        got_pl = panel_counts_pallas(
-            jnp.asarray(planes), jnp.asarray(planes),
-            site_chunk_words=chunk, tile_i=8, tile_j=8, interpret=True,
-        )
-        for exp, a, b in zip(expected, got_mm, got_pl):
+        for exp, a in zip(expected, got_mm):
             assert np.array_equal(np.asarray(a), exp)
-            assert np.array_equal(np.asarray(b), exp)
-
-
-def test_pallas_triangle_skip_upper_tiles_exact():
-    """With tri=1 (diagonal panel pair), tiles on/above the tile diagonal are
-    still exact; below-diagonal tiles are unspecified and must be masked by
-    the caller's strict i<j predicate (which discards them anyway)."""
-    g = random_genotypes(32, 512, missing_rate=0.1, seed=21, num_related_pairs=2)
-    layout = PlaneLayout.create(512, words_multiple=16)
-    planes = pack_genotypes(g, layout)
-    tile = 8
-    got = panel_counts_pallas(
-        jnp.asarray(planes), jnp.asarray(planes), jnp.int32(1),
-        site_chunk_words=8, tile_i=tile, tile_j=tile, interpret=True,
-    )
-    expected = oracle_counts(g, g)
-    for name, exp, act in zip(KingCounts._fields, expected, got):
-        act = np.asarray(act)
-        for bi in range(32 // tile):
-            for bj in range(bi, 32 // tile):  # upper tile triangle only
-                sl = np.s_[bi * tile:(bi + 1) * tile, bj * tile:(bj + 1) * tile]
-                assert np.array_equal(act[sl], exp[sl]), (name, bi, bj)
 
 
 def test_epilogue_matches_reference_expression():
@@ -163,140 +124,38 @@ def test_zero_het_pair_produces_ieee_division():
     assert not (kin2[0, 1] > -np.inf)  # NaN never passes the strict >
 
 
-def test_indexed_matches_sliced_pallas():
-    """panel_counts_pallas_indexed (scalar-prefetch block indexing into the
-    full storage — the engine's no-copy fast path) must produce the same
-    counters as slicing the panels first.  On diagonal panel pairs only the
-    upper-triangle tiles are compared (skipped tiles are garbage by
-    contract)."""
-    from cuking_tpu.ops.king_pallas import panel_counts_pallas_indexed
+@pytest.mark.parametrize("magnitude", [1 << 12, 1 << 20, 1 << 24, 1 << 30])
+def test_exact_division_matches_ieee(magnitude):
+    """The epilogue's integer long division rounds like IEEE float32
+    division (what the reference's CUDA `/` does) for integer-valued
+    operands of every magnitude the counters reach, incl. zero numerators
+    and zero denominators (±inf/NaN)."""
+    from cuking_tpu.ops.king_math import _div_rn
 
-    g = random_genotypes(64, 700, missing_rate=0.1, seed=3,
-                         num_related_pairs=2)
-    layout = PlaneLayout.create(700, words_multiple=8)
-    planes = jnp.asarray(pack_genotypes(g, layout))
-    panel = 16
-    for i_off, j_off, tri in [(0, 32, 0), (16, 16, 1), (48, 0, 0)]:
-        pi = planes[:, i_off:i_off + panel]
-        pj = planes[:, j_off:j_off + panel]
-        a = panel_counts_pallas(pi, pj, jnp.int32(tri), site_chunk_words=8,
-                                tile_i=8, tile_j=8, interpret=True)
-        b = panel_counts_pallas_indexed(
-            planes, jnp.int32(i_off), jnp.int32(j_off), jnp.int32(tri),
-            panel=panel, site_chunk_words=8, tile_i=8, tile_j=8,
-            interpret=True,
-        )
-        for name in a._fields:
-            x, y = np.asarray(getattr(a, name)), np.asarray(getattr(b, name))
-            if tri:
-                assert np.array_equal(np.triu(x), np.triu(y)), name
-            else:
-                assert np.array_equal(x, y), name
-
-    # Two-buffer form (ring-style: i from one storage, j from another).
-    c = panel_counts_pallas_indexed(
-        planes[:, :32], jnp.int32(16), jnp.int32(16), jnp.int32(0),
-        panel=panel, site_chunk_words=8, tile_i=8, tile_j=8,
-        interpret=True, planes_j=planes[:, 32:],
-    )
-    ref = panel_counts_pallas(
-        planes[:, 16:32], planes[:, 48:64], jnp.int32(0),
-        site_chunk_words=8, tile_i=8, tile_j=8, interpret=True,
-    )
-    for name in ref._fields:
-        assert np.array_equal(
-            np.asarray(getattr(ref, name)), np.asarray(getattr(c, name))
-        ), name
+    rng = np.random.default_rng(magnitude)
+    n = 1 << 16
+    num = rng.integers(-magnitude, magnitude, n).astype(np.float32)
+    den = (4 * rng.integers(0, magnitude // 4 + 1, n)).astype(np.float32)
+    den[:64] = 0
+    num[64:128] = 0
+    got = np.asarray(_div_rn(jnp.asarray(num), jnp.asarray(den)))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        exp = num / den
+    same = (got.view(np.uint32) == exp.view(np.uint32)) | (
+        np.isnan(got) & np.isnan(exp))
+    assert same.all(), (num[~same][:4], den[~same][:4])
 
 
-def test_indexed_kernel_rejects_misaligned_static_offsets():
-    """Static (Python-int) offsets not aligned to the SELECTED tile must be
-    rejected — a misaligned offset floor-divides to the wrong row window
-    (round-4 review finding), so the contract is enforced where it can be."""
-    import numpy as np
+def test_exact_division_edge_operands():
+    """Quotients far below 1 and far above it, power-of-two denominators,
+    and the largest operands the counters reach round as IEEE does.  (An
+    exact halfway quotient cannot occur: a midpoint needs 25 significant
+    bits, more than a float32 numerator carries.)"""
+    from cuking_tpu.ops.king_math import _div_rn
 
-    from cuking_tpu.ops.king_pallas import panel_counts_pallas_indexed
-    from cuking_tpu.utils.status import InvalidArgumentError
-
-    planes = jnp.asarray(
-        np.random.default_rng(0).integers(
-            0, 2**32, (2, 48, 8), dtype=np.uint32
-        )
-    )
-    with pytest.raises(InvalidArgumentError, match="selected tile"):
-        panel_counts_pallas_indexed(
-            planes, 0, 8, jnp.int32(0), panel=24, panel_j=16, interpret=True,
-        )
-    # Aligned static offsets are fine (j_off=16 is a tj=16 multiple).
-    counts = panel_counts_pallas_indexed(
-        planes, 0, 16, jnp.int32(0), panel=24, panel_j=16, interpret=True,
-    )
-    assert counts.both_het.shape == (24, 16)
-
-
-def test_split_w_nonmultiple_of_128_matches_oracle():
-    """W > 128 that is not a 128-multiple (words_multiple=64 layouts, which
-    cut site padding) runs as a 128-aligned prefix + full-axis remainder
-    pair of pallas calls (Mosaic lane rule); counts stay bit-exact under
-    both the u32 and u16 unpack modes."""
-    num_sites = 192 * 32 - 5  # W = 192 at wm=64 → split 128 + 64
-    g = random_genotypes(
-        16, num_sites, missing_rate=0.1, seed=31, num_related_pairs=2
-    )
-    layout = PlaneLayout.create(num_sites, words_multiple=64)
-    assert layout.words == 192 and layout.words % 128 != 0
-    planes = jnp.asarray(pack_genotypes(g, layout))
-    expected = oracle_counts(g, g)
-    for unpack in ("u32", "u16"):
-        got = panel_counts_pallas(
-            planes, planes, site_chunk_words=128, tile_i=8, tile_j=8,
-            interpret=True, unpack=unpack,
-        )
-        for name, exp, act in zip(KingCounts._fields, expected, got):
-            assert np.array_equal(np.asarray(act), exp), (name, unpack)
-
-
-def test_split_w_triangle_skip_upper_tiles_exact():
-    """The tri skip composes with the site-axis split: both halves skip the
-    same below-diagonal tiles (garbage + garbage), and every on/above-
-    diagonal tile remains exact."""
-    num_sites = 192 * 32
-    g = random_genotypes(
-        32, num_sites, missing_rate=0.1, seed=33, num_related_pairs=2
-    )
-    layout = PlaneLayout.create(num_sites, words_multiple=64)
-    planes = jnp.asarray(pack_genotypes(g, layout))
-    tile = 8
-    got = panel_counts_pallas(
-        planes, planes, jnp.int32(1), site_chunk_words=128,
-        tile_i=tile, tile_j=tile, interpret=True,
-    )
-    expected = oracle_counts(g, g)
-    for name, exp, act in zip(KingCounts._fields, expected, got):
-        act = np.asarray(act)
-        for bi in range(32 // tile):
-            for bj in range(bi, 32 // tile):
-                sl = np.s_[
-                    bi * tile:(bi + 1) * tile, bj * tile:(bj + 1) * tile
-                ]
-                assert np.array_equal(act[sl], exp[sl]), (name, bi, bj)
-
-
-def test_indexed_fallback_for_split_w_matches_oracle():
-    """A split-needing W degrades the indexed entry to panel slices + the
-    sliced path's split (full-storage slices would copy the whole bitset);
-    results must equal the oracle for the addressed row windows."""
-    from cuking_tpu.ops.king_pallas import panel_counts_pallas_indexed
-
-    num_sites = 192 * 32
-    g = random_genotypes(24, num_sites, missing_rate=0.1, seed=34)
-    layout = PlaneLayout.create(num_sites, words_multiple=64)
-    assert layout.words == 192
-    planes = jnp.asarray(pack_genotypes(g, layout))
-    got = panel_counts_pallas_indexed(
-        planes, jnp.int32(8), jnp.int32(16), jnp.int32(0), panel=8,
-        site_chunk_words=128, tile_i=8, tile_j=8, interpret=True,
-    )
-    expected = oracle_counts(g[8:16], g[16:24])
-    for name, exp, act in zip(KingCounts._fields, expected, got):
-        assert np.array_equal(np.asarray(act), exp), name
+    num = np.array([1, -1, 2**30, 2**24 - 1, 3, -(2**24 - 3), 2**30 - 64,
+                    12345679], np.float32)
+    den = np.array([2**30, 4, 4, 3, 2**24 - 4, 12, 3 * 2**20, 4 * 1000003],
+                   np.float32)
+    got = np.asarray(_div_rn(jnp.asarray(num), jnp.asarray(den)))
+    assert np.array_equal(got.view(np.uint32), (num / den).view(np.uint32))

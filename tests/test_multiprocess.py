@@ -2,7 +2,7 @@
 jax.distributed coordinator, cross-process ring collectives, host-sharded
 ingest, per-process output partitions (tools/multiprocess_smoke.py).
 
-Everything else in the suite runs the pod-slice code single-process ("all
+Everything else in the suite runs the multi-host code single-process ("all
 devices local"); this is the one test where process_index() genuinely
 differs between participants."""
 

@@ -1,4 +1,4 @@
-"""Multi-chip ring sweep on a virtual 8-device CPU mesh (SURVEY.md §4c):
+"""Multi-device ring sweep on a virtual 8-device CPU mesh (SURVEY.md §4c):
 sharded all-pairs results must equal the single-device oracle, and the
 balanced schedule must cover each block pair exactly once."""
 
@@ -28,8 +28,8 @@ def make_mesh(n):
     return Mesh(devices, axis_names=("samples",))
 
 
-def kernel(pi, pj, tri=None):
-    return panel_counts_matmul(pi, pj, tri, site_chunk_words=16)
+def kernel(pi, pj):
+    return panel_counts_matmul(pi, pj, site_chunk_words=16)
 
 
 # -- schedule algebra ---------------------------------------------------------
@@ -149,25 +149,20 @@ def test_ring_local_resultset_matches_global():
     assert_resultsets_equal(local, full)
 
 
-def test_ring_with_pallas_interpret_kernel():
-    """The production TPU combination — Pallas kernel + tri diagonal skip
-    inside the shard_map ring — in interpret mode on the CPU mesh."""
-    from cuking_tpu.ops.king_pallas import panel_counts_pallas
+def kernel_chunk8(pi, pj):
+    return panel_counts_matmul(pi, pj, site_chunk_words=8)
 
+
+def test_ring_chunk8_kernel_matches_oracle():
+    """The ring with a count kernel that accumulates many site chunks
+    (8-word chunks over W=8·k) inside the shard_map body on 4 devices."""
     g = random_genotypes(32, 256, missing_rate=0.1, seed=37, num_related_pairs=3)
     layout = PlaneLayout.create(256, words_multiple=8)
     planes = pack_genotypes(g, layout)
     mesh = make_mesh(4)
-
-    def pallas_kernel(pi, pj, tri):
-        return panel_counts_pallas(
-            pi, pj, tri, site_chunk_words=8, tile_i=8, tile_j=8,
-            interpret=True,
-        )
-
     out = all_pairs_sharded(
-        planes, 32, mesh, pallas_kernel,
-        kin_threshold=0.05, capacity_per_device=4096, row_multiple=8,
+        planes, 32, mesh, kernel_chunk8,
+        kin_threshold=0.05, capacity_per_device=4096,
     )
     got = ring_output_to_resultset(out)
     exp = oracle_resultset(g, 0.05)
@@ -202,26 +197,16 @@ def test_ring_sub_panel_matches_oracle(sub_panel):
     assert len(pairs) == len(got2) == len(oracle_resultset(g, -2.0))
 
 
-def test_ring_sub_panel_with_pallas_interpret():
-    """Sub-tiled ring + Pallas tri kernel (the production pod configuration)
-    in interpret mode; sub_panel respects the kernel's tile multiple."""
-    from cuking_tpu.ops.king_pallas import panel_counts_pallas
-
+def test_ring_sub_panel_chunk8_matches_oracle():
+    """Sub-tiled ring (sub_panel 8 over 15-row device blocks padded to 16)
+    with the chunked kernel on 4 devices."""
     g = random_genotypes(60, 256, missing_rate=0.1, seed=39, num_related_pairs=3)
     layout = PlaneLayout.create(256, words_multiple=8)
     planes = pack_genotypes(g, layout)
     mesh = make_mesh(4)
-
-    def pallas_kernel(pi, pj, tri):
-        return panel_counts_pallas(
-            pi, pj, tri, site_chunk_words=8, tile_i=8, tile_j=8,
-            interpret=True,
-        )
-
     out = all_pairs_sharded(
-        planes, 60, mesh, pallas_kernel,
-        kin_threshold=0.05, capacity_per_device=4096, row_multiple=8,
-        sub_panel=8,
+        planes, 60, mesh, kernel_chunk8,
+        kin_threshold=0.05, capacity_per_device=4096, sub_panel=8,
     )
     got = ring_output_to_resultset(out)
     exp = oracle_resultset(g, 0.05)
@@ -270,7 +255,7 @@ def test_submatrix_ring_merge_equals_unsharded(split_factor):
     (diagonal shards: offset triangular ring; off-diagonal: rectangular
     j-rotating ring); merged results must equal the whole-cohort mesh run
     AND the naive oracle — the reference's shard-merge property
-    (README.md:94-102) on the pod-slice path."""
+    (README.md:94-102) on the mesh path."""
     from cuking_tpu.models.king import ResultSet
     from cuking_tpu.parallel.ring import submatrix_pairs_sharded
     from cuking_tpu.parallel.submatrix import Submatrix, num_shards
@@ -402,8 +387,8 @@ def test_ring_global_max_results_enforced():
 def test_ring_auto_retry_capacity_is_pow2_bucketed():
     """The retry capacity is the next power of two above the overflow count
     (not the exact count): distinct hit skews in the same bucket then share
-    one compiled sweep instead of paying a full retrace + TPU compile each
-    (~2 min cold, VERDICT r2 weak #3)."""
+    one compiled sweep instead of paying a full retrace + compile each
+    (VERDICT r2 weak #3)."""
     from cuking_tpu.parallel.ring import _compiled_ring
 
     mesh = make_mesh(4)
@@ -469,78 +454,15 @@ def test_ring_auto_retry_without_explicit_max_results():
     assert_resultsets_equal(got, exp)
 
 
-# -- scalar-prefetch indexed kernel inside the ring (round 4) ----------------
-
-
-def _pallas_sliced(pi, pj, tri):
-    from cuking_tpu.ops.king_pallas import panel_counts_pallas
-
-    return panel_counts_pallas(
-        pi, pj, tri, site_chunk_words=8, tile_i=8, tile_j=8, interpret=True,
-    )
-
-
-def _pallas_indexed(planes, i_off, j_off, tri, **kw):
-    from cuking_tpu.ops.king_pallas import panel_counts_pallas_indexed
-
-    return panel_counts_pallas_indexed(
-        planes, i_off, j_off, tri, site_chunk_words=8, tile_i=8, tile_j=8,
-        interpret=True, **kw,
-    )
-
-
-def test_ring_indexed_kernel_matches_sliced():
-    """The scalar-prefetch indexed kernel inside the shard_map ring (no
-    per-sub-tile panel slice copies) must be bit-identical to the sliced
-    path and to the oracle — triangular ring incl. tri diagonal sub-tiles."""
-    g = random_genotypes(60, 256, missing_rate=0.1, seed=41,
-                         num_related_pairs=3)
-    layout = PlaneLayout.create(256, words_multiple=8)
-    planes = pack_genotypes(g, layout)
-    mesh = make_mesh(4)
-
-    runs = {}
-    for name, idx in (("sliced", None), ("indexed", _pallas_indexed)):
-        out = all_pairs_sharded(
-            planes, 60, mesh, _pallas_sliced,
-            kin_threshold=0.05, capacity_per_device=4096, row_multiple=8,
-            sub_panel=8, indexed_kernel=idx,
-        )
-        runs[name] = ring_output_to_resultset(out)
-    exp = oracle_resultset(g, 0.05)
-    assert len(exp) > 0
-    assert_resultsets_equal(runs["indexed"], exp)
-    assert_resultsets_equal(runs["indexed"], runs["sliced"])
-    assert np.array_equal(
-        runs["indexed"].kin.view(np.uint32), runs["sliced"].kin.view(np.uint32)
-    )
-
-
-def test_ring_indexed_wrap_split_single_subtile():
-    """Even-D wrap with ns == 1 drives the indexed kernel's asymmetric
-    (panel, panel_j) entry — both devices' half-blocks must still partition
-    the wrap block exactly and match the oracle."""
-    g = random_genotypes(32, 200, missing_rate=0.0, seed=51)
-    layout = PlaneLayout.create(200, words_multiple=8)
-    planes = pack_genotypes(g, layout)
-    mesh = make_mesh(2)
-    out = all_pairs_sharded(
-        planes, 32, mesh, _pallas_sliced,
-        kin_threshold=-2.0, capacity_per_device=1024, row_multiple=8,
-        sub_panel=None, indexed_kernel=_pallas_indexed,  # ns == 1
-    )
-    counts = np.asarray(out.counts)
-    assert counts.sum() == 32 * 31 // 2
-    assert counts[0] == counts[1] == 120 + 128, counts
-    got = ring_output_to_resultset(out)
-    assert_resultsets_equal(got, oracle_resultset(g, -2.0))
+# -- kernels are interchangeable inside the ring -----------------------------
 
 
 @pytest.mark.parametrize("shard", [0, 1, 2])
-def test_submatrix_ring_indexed_matches_sliced(shard):
-    """split_factor=2 shards through the mesh ring with the indexed kernel:
-    diagonal shards (0, 2) drive the offset triangular ring, shard 1 the
-    rectangular j-rotating ring (asymmetric planes_j buffer indexing)."""
+def test_submatrix_ring_popcount_matches_matmul(shard):
+    """split_factor=2 shards through the mesh ring: diagonal shards (0, 2)
+    drive the offset triangular ring, shard 1 the rectangular j-rotating
+    ring; the popcount and matmul kernels give bit-identical rows."""
+    from cuking_tpu.ops.king_jnp import panel_counts_popcount
     from cuking_tpu.parallel.ring import submatrix_pairs_sharded
     from cuking_tpu.parallel.submatrix import Submatrix
 
@@ -550,103 +472,56 @@ def test_submatrix_ring_indexed_matches_sliced(shard):
     mesh = make_mesh(4)
     sm = Submatrix.create(64, 2, shard)
     runs = {}
-    for name, idx in (("sliced", None), ("indexed", _pallas_indexed)):
+    for name, k in (("matmul", kernel_chunk8),
+                    ("popcount", panel_counts_popcount)):
         out = submatrix_pairs_sharded(
-            shard_storage(g, layout, sm, panel=8), mesh, _pallas_sliced,
+            shard_storage(g, layout, sm, panel=8), mesh, k,
             kin_threshold=-2.0, capacity_per_device=4096, sub_panel=8,
-            row_multiple=8, indexed_kernel=idx,
         )
         runs[name] = ring_output_to_resultset(out)
-    assert len(runs["indexed"]) > 0
-    assert_resultsets_equal(runs["indexed"], runs["sliced"])
+    assert len(runs["matmul"]) > 0
+    assert_resultsets_equal(runs["popcount"], runs["matmul"])
     assert np.array_equal(
-        runs["indexed"].kin.view(np.uint32), runs["sliced"].kin.view(np.uint32)
+        runs["popcount"].kin.view(np.uint32), runs["matmul"].kin.view(np.uint32)
     )
 
 
-def _pallas_indexed_default_tiles(planes, i_off, j_off, tri, **kw):
-    from cuking_tpu.ops.king_pallas import panel_counts_pallas_indexed
-
-    return panel_counts_pallas_indexed(
-        planes, i_off, j_off, tri, interpret=True, **kw,
-    )
-
-
-def test_ring_indexed_wrap_split_misaligned_tiles():
-    """Round-4 review bug: D=2 wrap with ns == 1 and p1 NOT aligned to the
-    indexed kernel's clamped j tile (here p=24, p1=8, tj=min(256, 16)=16).
-    The high half must not mis-index the visitor window — it takes the
-    sliced path; results must equal the all-sliced run bit-exactly."""
+def test_ring_wrap_split_non_power_of_two_block():
+    """D=2 wrap with ns == 1 on 24-row device blocks: the two devices split
+    the wrap block at row 12 and every pair is still emitted exactly once,
+    equal to the oracle."""
     g = random_genotypes(48, 200, missing_rate=0.0, seed=52,
                          num_related_pairs=3)
     layout = PlaneLayout.create(200, words_multiple=8)
     planes = pack_genotypes(g, layout)
     mesh = make_mesh(2)
-    runs = {}
-    for name, idx in (("sliced", None),
-                      ("indexed", _pallas_indexed_default_tiles)):
-        out = all_pairs_sharded(
-            planes, 48, mesh, _pallas_sliced,
-            kin_threshold=-2.0, capacity_per_device=4096, row_multiple=8,
-            sub_panel=None, indexed_kernel=idx,
-        )
-        runs[name] = ring_output_to_resultset(out)
-    assert len(runs["indexed"]) == 48 * 47 // 2
-    assert_resultsets_equal(runs["indexed"], runs["sliced"])
-    assert np.array_equal(
-        runs["indexed"].kin.view(np.uint32), runs["sliced"].kin.view(np.uint32)
+    out = all_pairs_sharded(
+        planes, 48, mesh, kernel_chunk8,
+        kin_threshold=-2.0, capacity_per_device=4096, sub_panel=None,
     )
-    assert_resultsets_equal(runs["indexed"], oracle_resultset(g, -2.0))
+    counts = np.asarray(out.counts)
+    assert counts[0] == counts[1] == 24 * 23 // 2 + 12 * 24, counts
+    got = ring_output_to_resultset(out)
+    assert len(got) == 48 * 47 // 2
+    assert_resultsets_equal(got, oracle_resultset(g, -2.0))
 
 
 def test_ring_split_w_layout_matches_oracle():
-    """A words_multiple=64 layout (W=192: >128 and not a 128-multiple)
-    through the mesh ring: the sliced kernel splits the site axis
-    in-kernel; the indexed kernel degrades to panel slices + the split
-    (king_pallas.py — the ring does NOT get the engine's two-array
-    composition).  Both must match the oracle and each other bit-exactly.
-
-    Kept deliberately small (16 samples, 2 devices, 128-word chunk so the
-    interpret-mode grid stays at a handful of cells): the same shapes at
-    chunk 8 × 4 devices compile a large-enough unrolled HLO to segfault
-    XLA:CPU under full-suite memory pressure on a 1-vCPU host (passes
-    standalone) — the coverage target is the split wiring, not scale."""
+    """A words_multiple=64 layout (W=192, not a multiple of the requested
+    128-word chunk, which clamps to 96) through the mesh ring matches the
+    oracle.  Kept small (16 samples, 2 devices): the coverage target is the
+    chunk clamp inside the shard_map body, not scale."""
     g = random_genotypes(16, 6100, missing_rate=0.1, seed=43,
                          num_related_pairs=2)
     layout = PlaneLayout.create(6100, words_multiple=64)
     assert layout.words == 192 and layout.words % 128 != 0
     planes = pack_genotypes(g, layout)
     mesh = make_mesh(2)
-
-    def sliced_128(pi, pj, tri):
-        from cuking_tpu.ops.king_pallas import panel_counts_pallas
-
-        return panel_counts_pallas(
-            pi, pj, tri, site_chunk_words=128, tile_i=8, tile_j=8,
-            interpret=True,
-        )
-
-    def indexed_128(planes, i_off, j_off, tri, **kw):
-        from cuking_tpu.ops.king_pallas import panel_counts_pallas_indexed
-
-        return panel_counts_pallas_indexed(
-            planes, i_off, j_off, tri, site_chunk_words=128, tile_i=8,
-            tile_j=8, interpret=True, **kw,
-        )
-
-    runs = {}
-    for name, idx in (("sliced", None), ("indexed", indexed_128)):
-        out = all_pairs_sharded(
-            planes, 16, mesh, sliced_128,
-            kin_threshold=0.05, capacity_per_device=1024, row_multiple=8,
-            sub_panel=8, indexed_kernel=idx,
-        )
-        runs[name] = ring_output_to_resultset(out)
+    out = all_pairs_sharded(
+        planes, 16, mesh,
+        lambda pi, pj: panel_counts_matmul(pi, pj, site_chunk_words=128),
+        kin_threshold=0.05, capacity_per_device=1024, sub_panel=8,
+    )
     exp = oracle_resultset(g, 0.05)
     assert len(exp) > 0
-    assert_resultsets_equal(runs["indexed"], exp)
-    assert_resultsets_equal(runs["sliced"], exp)
-    assert np.array_equal(
-        runs["indexed"].kin.view(np.uint32),
-        runs["sliced"].kin.view(np.uint32),
-    )
+    assert_resultsets_equal(ring_output_to_resultset(out), exp)

@@ -247,9 +247,9 @@ def main(argv=None) -> int:
                     help="keep workdir artifacts")
     args = ap.parse_args(argv)
 
-    from cuking_tpu.utils.platform import apply_platform_override
+    from cuking_tpu.utils.compile_cache import enable_compile_cache
 
-    apply_platform_override()
+    enable_compile_cache()
 
     from cuking_tpu.io.synthetic_input import write_synthetic_input
     from cuking_tpu.io.uri import Storage

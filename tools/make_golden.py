@@ -17,7 +17,7 @@ is also exactly the reference kernel's fp32 expression (cuking.cu:286-307):
 counted over sites where BOTH samples are defined.  This script shares NO
 code with cuking_tpu's compute path: per-pair Python loops over a dense
 genotype matrix, numpy fp32 scalar arithmetic (one IEEE rounding per op,
-like the CUDA/TPU kernels).  Kin values are stored as uint32 bit patterns so
+like the CUDA and JAX kernels).  Kin values are stored as uint32 bit patterns so
 the comparison is bit-exact, inf/NaN included.
 
 Provenance / regeneration against real Hail: run

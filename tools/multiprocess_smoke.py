@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """True multi-process smoke for the --distributed path.
 
-Round 1 validated the pod-slice code only in a single process ("all devices
+Round 1 validated the multi-host code only in a single process ("all devices
 local").  This launches N OS processes, each owning M virtual CPU devices,
 connected through jax.distributed over localhost — the real coordinator
 handshake, the real cross-process collectives (ppermute ring, allgather for
@@ -59,9 +59,9 @@ def worker(args) -> int:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    # Explicit initialization, like an embedder (or a hand-rolled pod) would
-    # do; cli.py --distributed detects the already-initialized runtime.  On
-    # real TPU pod slices initialize() autodetects from TPU metadata instead.
+    # Explicit initialization, like an embedder or a multi-host launcher
+    # would do; cli.py --distributed detects the already-initialized
+    # runtime.
     jax.distributed.initialize(
         coordinator_address=f"localhost:{args.port}",
         num_processes=args.num_processes,

@@ -1,29 +1,25 @@
 #!/usr/bin/env python3
-"""Multi-chip scaling harness: pairs/s/chip vs device count (BASELINE.md
-target: ≥85% scaling efficiency at N≥2 on a TPU pod slice).
+"""Multi-GPU scaling harness: pairs/s per card vs device count (BASELINE.md
+target: ≥85% scaling efficiency at N≥2).
 
 Weak-scaling sweep over the PRODUCTION distributed path
 (`parallel.ring.all_pairs_presharded` — the same shard_map + lax.ppermute
-ring `--use_mesh/--distributed` runs): per-chip resident rows stay
+ring `--use_mesh/--distributed` runs): per-device resident rows stay
 constant, the cohort grows with D, pair work grows ~D²/2, so ideal
-pairs/s/chip is flat.  For each D it reports pairs/s/chip and efficiency
-relative to D=1.
+pairs/s per card is flat.  For each D it reports pairs/s per card and
+efficiency relative to D=1.
 
-Extras by backend:
-- TPU, D≥2: captures a profiler trace of one sweep and measures the
-  ppermute/compute overlap (fraction of collective-permute time covered by
-  Mosaic kernel custom-calls, tools/trace_report.ppermute_overlap) — the
-  ring schedule's cross-rotation overlap claim, finally measured rather
-  than asserted.  Exits 1 if efficiency < --min-efficiency (default 0.85)
-  unless --no-assert.
-- TPU, D=1 (this build box): degrades to the single-chip ring measurement,
-  reproducing bench.py's `pairs_per_sec_ring_path_1dev` (~196M @ 32k).
+By backend:
+- GPU, D≥2: also captures a profiler trace of one sweep and measures the
+  ppermute/compute overlap (fraction of collective time covered by the same
+  card's compute, tools/trace_report.ppermute_overlap) — the ring
+  schedule's cross-rotation overlap claim, measured rather than asserted.
+  Exits 1 if efficiency < --min-efficiency (default 0.85) unless
+  --no-assert.
 - CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count=8
-  JAX_PLATFORMS=cpu): validates the multi-chip SCHEDULE, not time — hit
-  totals must be identical across every D (the same global pair set swept
-  by construction, parallel/ring.py ring_schedule), and step counts must
-  match ring_num_steps(D).  Host timing on a virtual mesh says nothing
-  about ICI.
+  JAX_PLATFORMS=cpu): validates the multi-device SCHEDULE and takes no
+  time at all — hit totals must be identical across every D (the same
+  global pair set swept by construction, parallel/ring.py ring_schedule).
 
 Run: python tools/scaling_bench.py [--rows-per-chip 16384] [--sites 100000]
      [--devices 1 2 4] [--no-assert]
@@ -31,7 +27,9 @@ Run: python tools/scaling_bench.py [--rows-per-chip 16384] [--sites 100000]
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -42,38 +40,27 @@ sys.path.insert(0, ".")
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows-per-chip", type=int, default=None,
-                    help="resident samples per device (default: 16384 TPU / 64 CPU)")
+                    help="resident samples per device (default: 16384 GPU / 64 CPU)")
     ap.add_argument("--sites", type=int, default=None)
     ap.add_argument("--devices", type=int, nargs="*", default=None,
                     help="device counts to sweep (default: 1..N available)")
     ap.add_argument("--min-efficiency", type=float, default=0.85)
     ap.add_argument("--no-assert", action="store_true")
-    ap.add_argument("--trace-dir", default="/tmp/cuking_scaling_trace")
-    ap.add_argument("--indexed-panels", action=argparse.BooleanOptionalAction,
-                    default=None, help=(
-        "Override KingConfig.indexed_panels for the ring sweep "
-        "(A/B the scalar-prefetch path on hardware)"))
-    ap.add_argument("--words-multiple", type=int, default=None, help=(
-        "Override the layout's word padding multiple (A/B wm=64 split-W "
-        "layouts on hardware; the ring runs the indexed kernel's "
-        "slice-fallback at such W — see king_pallas.py)"))
+    ap.add_argument("--trace-dir", default=os.path.join(
+        tempfile.gettempdir(), "cuking_scaling_trace"))
     args = ap.parse_args()
 
-    from cuking_tpu.utils.platform import apply_platform_override
+    from cuking_tpu.utils.compile_cache import enable_compile_cache
+    from cuking_tpu.utils.device import nvidia_smi_line
 
-    apply_platform_override()
+    enable_compile_cache()
     import jax
 
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from cuking_tpu.models.king import (
-        KingConfig, _resolve_indexed_kernel, _resolve_kernel,
-    )
+    from cuking_tpu.models.king import KingConfig, _resolve_kernel
     from cuking_tpu.ops.bitset import PlaneLayout, allocate_planes, pack_genotypes
     from cuking_tpu.parallel.ring import (
         all_pairs_presharded, ring_global_counts, ring_num_steps,
@@ -81,26 +68,16 @@ def main() -> int:
     from cuking_tpu.utils.synthetic import random_genotypes
 
     backend = jax.default_backend()
-    on_tpu = backend == "tpu"
+    on_gpu = backend == "gpu"
     devices = jax.devices()
-    print(f"backend={backend} devices={len(devices)}", file=sys.stderr)
+    card = nvidia_smi_line() if on_gpu else "no GPU"
+    print(f"backend={backend} devices={devices} card={card}", file=sys.stderr)
 
-    rows_per_chip = args.rows_per_chip or (16384 if on_tpu else 64)
-    num_sites = args.sites or (100_000 if on_tpu else 2_000)
-    chunk = 128 if on_tpu else 16
-    sub_panel = 1024 if on_tpu else 32
-    row_multiple = 256 if on_tpu else 1
-    config_kw = {}
-    if args.indexed_panels is not None:
-        config_kw["indexed_panels"] = args.indexed_panels
-    # Without the override, indexed_panels inherits the KingConfig default
-    # so this bench always measures the engine's production path.
-    bench_config = KingConfig(
-        kernel="pallas" if on_tpu else "matmul",
-        panel=sub_panel, site_chunk_words=chunk, **config_kw,
-    )
-    kernel = _resolve_kernel(bench_config)
-    indexed_kernel = _resolve_indexed_kernel(bench_config)
+    rows_per_chip = args.rows_per_chip or (16384 if on_gpu else 64)
+    num_sites = args.sites or (100_000 if on_gpu else 2_000)
+    chunk = 128 if on_gpu else 16
+    sub_panel = 1024 if on_gpu else 32
+    kernel = _resolve_kernel(KingConfig(site_chunk_words=chunk))
     ds = args.devices or list(range(1, len(devices) + 1))
     ds = sorted(set(d for d in ds if 1 <= d <= len(devices)))
     if not ds:
@@ -109,12 +86,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    layout = PlaneLayout.create(
-        num_sites, words_multiple=args.words_multiple or chunk
-    )
+    layout = PlaneLayout.create(num_sites)
     max_rows = rows_per_chip * max(ds)
     rng = np.random.default_rng(0)
-    if on_tpu:
+    if on_gpu:
         # Random packed words: dense defined genotypes, ~no hits at the 0.9
         # timing threshold — measures pure compute like bench.py.
         planes_all = rng.integers(
@@ -154,10 +129,7 @@ def main() -> int:
         planes_sharded = jax.device_put(
             jnp.asarray(planes_host), NamedSharding(mesh, P(None, "samples", None))
         )
-        ring_args = dict(
-            capacity_per_device=1 << 16, sub_panel=sub_panel,
-            row_multiple=row_multiple, indexed_kernel=indexed_kernel,
-        )
+        ring_args = dict(capacity_per_device=1 << 16, sub_panel=sub_panel)
         out = all_pairs_presharded(
             planes_sharded, n, mesh, kernel,
             kin_threshold=threshold, **ring_args,
@@ -169,29 +141,43 @@ def main() -> int:
                   file=sys.stderr)
             return 1
 
+        row = {"devices": d, "samples": n, "ring_steps": ring_num_steps(d),
+               "hits": hits}
+        results.append(row)
+        if not on_gpu:  # a virtual CPU mesh says nothing about the card
+            print(f"D={d}: {n} samples, {hits} hits (timing not measured)",
+                  file=sys.stderr)
+            continue
         runs = []
-        for k in range(3):
-            # Vary the threshold so the runtime cannot serve a cached result.
+        for _ in range(3):
             t0 = time.perf_counter()
             out = all_pairs_presharded(
                 planes_sharded, n, mesh, kernel,
-                kin_threshold=threshold + 1e-4 * (k + 1), **ring_args,
+                kin_threshold=threshold, **ring_args,
             )
             jax.block_until_ready(out.counts)
             runs.append(time.perf_counter() - t0)
         dt = float(np.median(runs))
-        pairs = n * (n - 1) / 2
-        per_chip = pairs / dt / d
-        results.append({
-            "devices": d, "samples": n, "median_s": round(dt, 4),
-            "pairs_per_sec_per_chip": round(per_chip),
-            "ring_steps": ring_num_steps(d),
-            "hits": hits,
-        })
+        per_chip = n * (n - 1) / 2 / dt / d
+        row.update(runs_s=runs, median_s=dt, pairs_per_sec_per_chip=per_chip)
         print(f"D={d}: {n} samples, {dt*1e3:8.1f} ms -> "
-              f"{per_chip/1e6:7.1f} M pairs/s/chip "
-              f"({ring_num_steps(d)} ring steps, {hits} hits)",
+              f"{per_chip/1e6:7.1f} M pairs/s per card "
+              f"({ring_num_steps(d)} ring steps, {hits} hits) on {card}",
               file=sys.stderr)
+
+    if not on_gpu:
+        # CPU mesh: the schedule property, not time — every D swept the
+        # same global pair set, so hit totals must agree exactly.
+        totals = {r["devices"]: r["hits"] for r in results}
+        print(json.dumps({"backend": backend, "weak_scaling": results}))
+        if len(set(totals.values())) != 1:
+            print(f"FAIL: hit totals differ across D: {totals}",
+                  file=sys.stderr)
+            return 1
+        print("CPU mesh: schedule validated (identical hit totals across "
+              f"D={sorted(totals)}; timing not measured on a virtual mesh)",
+              file=sys.stderr)
+        return 0
 
     # Efficiency denominator: the single-device measurement.  If D=1 was
     # not swept, fall back to the smallest D measured — but say so, since
@@ -209,7 +195,7 @@ def main() -> int:
         r[eff_key] = round(r["pairs_per_sec_per_chip"] / base, 3)
 
     overlap = None
-    if on_tpu and max(ds) > 1:
+    if max(ds) > 1:
         # Trace one sweep at the largest D and measure ppermute overlap.
         from tools.trace_report import ppermute_overlap
 
@@ -224,8 +210,6 @@ def main() -> int:
             out = all_pairs_presharded(
                 planes_sharded, n, mesh, kernel, kin_threshold=threshold + 0.01,
                 capacity_per_device=1 << 16, sub_panel=sub_panel,
-                indexed_kernel=indexed_kernel,
-                row_multiple=row_multiple,
             )
             jax.block_until_ready(out.counts)
         overlap = ppermute_overlap(args.trace_dir)
@@ -233,13 +217,14 @@ def main() -> int:
 
     report = {
         "backend": backend,
+        "card": card,
         "weak_scaling": results,
         "ppermute_overlap": overlap,
         "target_efficiency": args.min_efficiency,
     }
     print(json.dumps(report))
 
-    if on_tpu and not args.no_assert:
+    if not args.no_assert:
         bad = [r for r in results
                if r["devices"] >= 2
                and r[eff_key] < args.min_efficiency]
@@ -247,17 +232,6 @@ def main() -> int:
             print(f"FAIL: scaling efficiency below "
                   f"{args.min_efficiency}: {bad}", file=sys.stderr)
             return 1
-    if not on_tpu:
-        # CPU mesh: the schedule property, not time — every D swept the
-        # same global pair set, so hit totals must agree exactly.
-        totals = {r["devices"]: r["hits"] for r in results}
-        if len(set(totals.values())) != 1:
-            print(f"FAIL: hit totals differ across D: {totals}",
-                  file=sys.stderr)
-            return 1
-        print("CPU mesh: schedule validated (identical hit totals across "
-              f"D={sorted(totals)}; timing not meaningful on a virtual mesh)",
-              file=sys.stderr)
     return 0
 
 

@@ -1,7 +1,14 @@
 """Capture jax.profiler traces of the engine sweep (hit-free + hitful) and
-the 1-device ring on the real chip, then aggregate device-side op time by
-category from the xplane (jax.profiler.ProfileData — no TensorBoard
-needed).  Writes the measured breakdown to stdout; PERF.md quotes it.
+the 1-device ring on a GPU, then reduce the device planes of the xplane
+(jax.profiler.ProfileData — no TensorBoard needed) to the numbers PERF.md
+quotes: device busy and idle share, time by op category, and the top ops.
+
+A GPU device plane (``/device:GPU:N``) has one line per CUDA stream; its
+events are the kernels XLA launched, named after their fusion or library
+kernel (``input_concatenate_fusion``, ``sm90_xmma_gemm_i8i32_...``,
+``ncclDevKernel_...``).  Busy time is the union of those intervals over all
+streams; idle share is 1 - busy / span, with the span from the first to the
+last device event of the trace.
 
 Usage: python tools/trace_report.py [--outdir DIR]
 """
@@ -11,6 +18,7 @@ import dataclasses
 import glob
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -18,24 +26,16 @@ import numpy as np
 sys.path.insert(0, ".")
 
 CATEGORIES = (
-    ("kernel (Mosaic custom-call)", ("custom-call",)),
-    ("collective-permute", ("collective-permute",)),
+    ("collective (NCCL)", ("nccl", "collective", "sendrecv")),
+    ("int8 GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas")),
     ("scatter", ("scatter",)),
-    ("sort/top_k", ("sort", "top-k", "topk")),
+    ("sort/top_k", ("sort", "topk", "top_k", "top-k")),
     ("gather", ("gather",)),
-    ("dynamic-slice/update", ("dynamic-slice", "dynamic-update-slice")),
-    ("copy", ("copy",)),
-    ("fusion (epilogue/mask/unpack)", ("fusion",)),
+    ("dynamic-slice/update", ("dynamic_slice", "dynamic-slice",
+                              "dynamic_update_slice")),
+    ("memcpy/memset", ("memcpy", "memset")),
+    ("fusion (unpack/accumulate/epilogue)", ("fusion", "wrapped_")),
 )
-
-
-def _is_container(name: str) -> bool:
-    """Control-flow container ops (while/cond/call) span their children and
-    would double-count them: the engine's scan shows as a %while and a
-    %cond each covering ~the whole module next to the kernel custom-calls
-    they contain."""
-    n = name.lower().lstrip("%")
-    return n.startswith(("while", "cond", "call", "conditional"))
 
 
 def classify(name: str) -> str:
@@ -46,197 +46,167 @@ def classify(name: str) -> str:
     return "other"
 
 
-def analyze(trace_dir: str) -> dict:
-    from jax.profiler import ProfileData
-
-    path = sorted(glob.glob(f"{trace_dir}/**/*.xplane.pb", recursive=True))[-1]
-    pd = ProfileData.from_file(path)
-    agg = collections.Counter()
-    module_ns = 0.0
-    async_ns = 0.0
-    module_span = [float("inf"), 0.0]
-    for plane in pd.planes:
-        if "TPU" not in plane.name:
-            continue
-        for line in plane.lines:
-            if line.name == "XLA Modules":
-                for e in line.events:
-                    module_ns += e.duration_ns
-                    module_span[0] = min(module_span[0], e.start_ns)
-                    module_span[1] = max(module_span[1], e.end_ns)
-            elif line.name == "XLA Ops":
-                for e in line.events:
-                    if _is_container(e.name):
-                        continue
-                    agg[classify(e.name)] += e.duration_ns
-            elif line.name == "Async XLA Ops":
-                for e in line.events:
-                    async_ns += e.duration_ns
-    busy = sum(agg.values())
-    return {
-        "by_category_ms": {k: v / 1e6 for k, v in agg.most_common()},
-        "ops_busy_ms": busy / 1e6,
-        "modules_ms": module_ns / 1e6,
-        "wall_span_ms": (module_span[1] - module_span[0]) / 1e6,
-        "async_dma_ms": async_ns / 1e6,
-    }
-
-
-def _intervals(trace_dir: str) -> dict:
-    """(start_ns, end_ns) interval lists per category from the xplane's
-    device planes — sync ("XLA Ops") and async ("Async XLA Ops") lines both
-    contribute, since collectives show up as async start/done pairs.
-    Pools ALL device planes — only valid for whole-trace aggregates."""
-    out = collections.defaultdict(list)
-    for per_cat in _intervals_per_plane(trace_dir).values():
-        for cat, ivs in per_cat.items():
-            out[cat].extend(ivs)
-    return out
-
-
-def _intervals_per_plane(trace_dir: str) -> dict:
-    """{device plane name: {category: [(start_ns, end_ns), ...]}}.
-
-    Overlap questions (does THIS device's permute hide under THIS device's
-    compute?) must be answered per plane: pooling planes lets one device's
-    kernel 'cover' another device's collective, faking overlap on a
-    phase-staggered ring."""
+def _device_events(trace_dir: str) -> dict:
+    """{device plane name: [(name, start_ns, end_ns), ...]} over every
+    stream line of each GPU plane of the newest trace under ``trace_dir``."""
     from jax.profiler import ProfileData
 
     path = sorted(glob.glob(f"{trace_dir}/**/*.xplane.pb", recursive=True))[-1]
     pd = ProfileData.from_file(path)
     out = {}
     for plane in pd.planes:
-        if "TPU" not in plane.name:
+        if not plane.name.startswith("/device:GPU"):
             continue
-        per_cat = collections.defaultdict(list)
-        for line in plane.lines:
-            if line.name not in ("XLA Ops", "Async XLA Ops"):
-                continue
-            for e in line.events:
-                per_cat[classify(e.name)].append(
-                    (e.start_ns, e.start_ns + e.duration_ns)
-                )
-        if per_cat:
-            out[plane.name] = per_cat
+        events = [
+            (e.name, e.start_ns, e.start_ns + e.duration_ns)
+            for line in plane.lines
+            for e in line.events
+        ]
+        if events:
+            out[plane.name] = events
     return out
 
 
+def _union_ns(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def analyze(trace_dir: str) -> dict:
+    """Busy/idle share, time by category and the top five ops, summed over
+    the GPU planes of the trace."""
+    by_cat = collections.Counter()
+    by_op = collections.Counter()
+    busy = span = 0.0
+    for events in _device_events(trace_dir).values():
+        for name, s, e in events:
+            by_cat[classify(name)] += e - s
+            by_op[name] += e - s
+        busy += _union_ns((s, e) for _, s, e in events)
+        span += max(e for *_, e in events) - min(s for _, s, _ in events)
+    return {
+        "busy_ms": busy / 1e6,
+        "span_ms": span / 1e6,
+        "idle_share": 1.0 - busy / span if span else None,
+        "by_category_ms": {k: v / 1e6 for k, v in by_cat.most_common()},
+        "top_ops_ms": [(k, v / 1e6) for k, v in by_op.most_common(5)],
+    }
+
+
 def ppermute_overlap(trace_dir: str) -> dict | None:
-    """Measures how much collective-permute (ICI ring hop) time is covered
-    by Mosaic kernel custom-calls — the schedule's claim that the next
-    rotation's panel exchange hides under the current rotation's compute
-    (parallel/ring.py).  Returns None when the trace holds no
-    collective-permute events (D=1: XLA compiles the self-permute away).
-    Used by tools/scaling_bench.py on real multi-chip hardware."""
-    total = covered = nev = 0
-    # Per device plane: a permute only counts as overlapped if THIS
-    # device's kernels cover it (cross-plane pooling would credit another
-    # chip's compute on a phase-staggered ring).
-    for per_cat in _intervals_per_plane(trace_dir).values():
-        cps = sorted(per_cat.get("collective-permute", []))
-        if not cps:
+    """How much collective time is covered by the SAME card's compute —
+    the ring schedule's claim that the next rotation's panel exchange hides
+    under the current rotation's kernels (parallel/ring.py).  None when the
+    trace holds no collectives (D=1: XLA compiles the self-permute away).
+    Per plane: pooling planes would credit another card's compute on a
+    phase-staggered ring."""
+    total = covered = nev = 0.0
+    for events in _device_events(trace_dir).values():
+        coll = sorted((s, e) for n, s, e in events
+                      if classify(n) == "collective (NCCL)")
+        if not coll:
             continue
-        kernels = sorted(per_cat.get("kernel (Mosaic custom-call)", []))
-        # Union of kernel intervals, then per-cp overlap via merge scan.
         merged = []
-        for s, e in kernels:
+        for s, e in sorted((s, e) for n, s, e in events
+                           if classify(n) not in ("collective (NCCL)",
+                                                  "memcpy/memset")):
             if merged and s <= merged[-1][1]:
                 merged[-1][1] = max(merged[-1][1], e)
             else:
                 merged.append([s, e])
-        nev += len(cps)
-        total += sum(e - s for s, e in cps)
-        ki = 0
-        for s, e in cps:
-            while ki < len(merged) and merged[ki][1] <= s:
-                ki += 1
-            kj = ki
-            while kj < len(merged) and merged[kj][0] < e:
-                covered += min(e, merged[kj][1]) - max(s, merged[kj][0])
-                kj += 1
+        nev += len(coll)
+        total += sum(e - s for s, e in coll)
+        for s, e in coll:
+            for ms, me in merged:
+                if me > s and ms < e:
+                    covered += min(e, me) - max(s, ms)
     if nev == 0:
         return None
     return {
-        "collective_permute_ms": total / 1e6,
+        "collective_ms": total / 1e6,
         "overlapped_ms": covered / 1e6,
         "overlap_fraction": covered / max(total, 1),
-        "num_events": nev,
+        "num_events": int(nev),
     }
 
 
 def report(tag, stats):
     print(f"\n== {tag} ==")
-    print(f"  device module time: {stats['modules_ms']:.1f} ms   "
-          f"(wall span {stats['wall_span_ms']:.1f} ms)")
-    print(f"  sync-op busy time:  {stats['ops_busy_ms']:.1f} ms   "
-          f"async-DMA (overlapped): {stats['async_dma_ms']:.1f} ms")
+    print(f"  device busy {stats['busy_ms']:.2f} ms of a "
+          f"{stats['span_ms']:.2f} ms span: idle share "
+          f"{stats['idle_share']:.4f}")
     for k, v in stats["by_category_ms"].items():
-        share = 100.0 * v / max(stats["ops_busy_ms"], 1e-9)
-        print(f"    {k:34s} {v:9.2f} ms  {share:5.1f}%")
+        share = 100.0 * v / max(stats["busy_ms"], 1e-9)
+        print(f"    {k:38s} {v:10.2f} ms  {share:5.1f}% of busy")
+    print("  top ops:")
+    for k, v in stats["top_ops_ms"]:
+        print(f"    {v:10.2f} ms  {k[:100]}")
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--outdir", default="/tmp/cuking_traces")
+    ap.add_argument("--outdir", default=os.path.join(
+        tempfile.gettempdir(), "cuking_traces"))
     args = ap.parse_args()
 
+    from cuking_tpu.utils.compile_cache import enable_compile_cache
+    from cuking_tpu.utils.device import NoGpuError, nvidia_smi_line, require_gpu
+
+    enable_compile_cache()
+    try:
+        require_gpu()
+    except NoGpuError as e:
+        print(f"trace_report.py: {e}", file=sys.stderr)
+        return 1
     import jax
-    jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
     from cuking_tpu.models.king import KingConfig, KingEngine, PanelStorage
     from cuking_tpu.ops.bitset import PlaneLayout
     from cuking_tpu.parallel.submatrix import Submatrix
 
-    print("backend:", jax.default_backend(), file=sys.stderr)
-    on_tpu = jax.default_backend() == "tpu"
-    num_samples, num_sites, panel, chunk = (
-        (16384, 100_000, 1024, 128) if on_tpu else (192, 2000, 64, 16)
-    )
-    kernel = "pallas" if on_tpu else "matmul"
-    layout = PlaneLayout.create(num_sites, words_multiple=chunk)
+    print(f"card: {nvidia_smi_line()}")
+    num_samples, num_sites, panel = 16384, 100_000, 1024
+    layout = PlaneLayout.create(num_sites)
     storage = PanelStorage(layout, Submatrix.create(num_samples, 1, 0), panel)
     rng = np.random.default_rng(0)
     storage.planes[:] = rng.integers(0, 2**32, storage.planes.shape,
                                      dtype=np.uint32)
-    cfg = KingConfig(kin_threshold=0.9, panel=panel, kernel=kernel,
-                     site_chunk_words=chunk, sweep_batch=16)
+    cfg = KingConfig(kin_threshold=0.9, panel=panel, sweep_batch=16)
     engine = KingEngine(storage, cfg)
     engine.run()  # warm-up/compile
 
     d1 = os.path.join(args.outdir, "engine_hitfree")
     with jax.profiler.trace(d1):
         t0 = time.perf_counter()
-        engine.config = dataclasses.replace(engine.config, kin_threshold=0.91)
         engine.run()
         dt = time.perf_counter() - t0
-    print(f"hit-free run: {dt*1e3:.1f} ms", file=sys.stderr)
-    report("engine sweep, hit-free (0.91 threshold)", analyze(d1))
+    print(f"hit-free run: {dt*1e3:.1f} ms (traced)")
+    report("engine sweep, hit-free (0.9 threshold)", analyze(d1))
 
     # hitful: clone 8-sample families (the bench's hit pattern)
-    family, members = (512, 8) if on_tpu else (8, 4)
+    family, members = 512, 8
     for fam in range(family):
         src = fam * members
-        for m in range(1, members):
-            storage.planes[:, src + m, :] = storage.planes[:, src, :]
+        storage.planes[:, src + 1:src + members] = storage.planes[:, src:src + 1]
     storage.mark_mutated()
     engine.config = dataclasses.replace(engine.config, kin_threshold=0.0884)
     engine.run()  # warm-up hit path
     d2 = os.path.join(args.outdir, "engine_hitful")
     with jax.profiler.trace(d2):
         t0 = time.perf_counter()
-        engine.config = dataclasses.replace(engine.config,
-                                            kin_threshold=0.08841)
         rs = engine.run()
         dt = time.perf_counter() - t0
-    print(f"hitful run: {dt*1e3:.1f} ms, {len(rs)} hits", file=sys.stderr)
+    print(f"hitful run: {dt*1e3:.1f} ms, {len(rs)} hits (traced)")
     report("engine sweep, hitful (default threshold)", analyze(d2))
 
-    # 1-device ring (sub-tiled triangle + compaction; ppermute is a no-op
-    # at D=1 — multi-chip ICI overlap is asserted by construction and
-    # validated functionally on the CPU mesh, ICI unmeasurable on 1 chip)
+    # 1-device ring (sub-tiled triangle + compaction; the ppermute is a
+    # no-op at D=1 — tools/scaling_bench.py traces the multi-GPU ring).
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
     from cuking_tpu.models.king import _resolve_kernel
     from cuking_tpu.parallel.ring import all_pairs_presharded
 
@@ -246,22 +216,21 @@ def main():
     )
     rk = _resolve_kernel(cfg)
     ring_args = dict(kin_threshold=0.0884, capacity_per_device=1 << 20,
-                     sub_panel=panel, row_multiple=256 if on_tpu else 1)
+                     sub_panel=panel)
     out = all_pairs_presharded(planes_sharded, num_samples, mesh, rk,
                                **ring_args)
     jax.block_until_ready(out.counts)
     d3 = os.path.join(args.outdir, "ring_1dev")
     with jax.profiler.trace(d3):
         t0 = time.perf_counter()
-        out = all_pairs_presharded(
-            planes_sharded, num_samples, mesh, rk,
-            **{**ring_args, "kin_threshold": 0.08841},
-        )
+        out = all_pairs_presharded(planes_sharded, num_samples, mesh, rk,
+                                   **ring_args)
         jax.block_until_ready(out.counts)
         dt = time.perf_counter() - t0
-    print(f"ring 1-dev run: {dt*1e3:.1f} ms", file=sys.stderr)
+    print(f"ring 1-dev run: {dt*1e3:.1f} ms (traced)")
     report("ring sweep, 1 device, hitful", analyze(d3))
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())
